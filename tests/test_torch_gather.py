@@ -127,10 +127,15 @@ def test_take_cm_column_slice(rng):
 
 
 def test_take_cm_rejects_table_grad_and_other_devices(rng):
+    """A table that requires grad is no longer refused: its gradient is the
+    hash encoder's autograd Function (tests/test_torch_scatter.py), which
+    calls take_cm on the detached table.  Other devices are refused."""
     tbl = torch.from_numpy(_table(rng, 4, 64)).requires_grad_()
-    idx = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tgather.take_cm(tbl, idx)
+    idx = torch.arange(8, dtype=torch.int32) * 5
+    got = tgather.take_cm(tbl, idx)
+    assert got.shape == (4, 8)
+    torch.testing.assert_close(got.detach(), tbl.detach()[:, idx.long()],
+                               rtol=0, atol=0)
     with torch.no_grad():
         assert tgather.take_cm(tbl, idx).shape == (4, 8)
     with pytest.raises(ValueError):

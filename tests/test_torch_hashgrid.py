@@ -4,7 +4,8 @@ modes, and its table layout against the JAX ``HashGridSpec``.
 
 Tolerance rtol 1e-5, atol 1e-6: both sides gather the same f32 rows and sum
 8 weighted corners and 6 hex points in f32, in different orders.  The corner
-indices, including the uint32-wrapping prime hash, must agree exactly.
+indices, including the uint32-wrapping prime hash, must agree exactly.  The
+table gradient is tested in ``tests/test_torch_scatter.py``.
 """
 
 import dataclasses
@@ -155,5 +156,12 @@ def test_init_table_and_table_grad_raises():
     assert table.abs().max() <= spec.init_std
     table.requires_grad_()
     x01 = torch.rand((3, 6, 16), generator=gen)
+    # The table gradient runs K1/K2; the bf16-packed one (K3) is not ported.
     with pytest.raises(NotImplementedError):
-        thash.encode_hex_cm(x01, None, table, spec)
+        thash.encode_hex_cm(x01, None, table, spec,
+                            bwd_value_dtype="bfloat16")
+    thash.encode_hex_cm(x01, None, table, spec)[0].sum().backward()
+    assert table.grad.shape == table.shape and table.grad.abs().max() > 0
+    with torch.no_grad():  # the render path ignores the backward knobs
+        thash.encode_hex_cm(x01, None, table, spec,
+                            bwd_value_dtype="bfloat16")

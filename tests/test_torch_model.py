@@ -171,7 +171,9 @@ names = [m.name for m in pkgutil.walk_packages(ucnerf_tpu_torch.__path__,
                                                "ucnerf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 15, names
+assert len(names) >= 18, names
+assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
+        "ucnerf_tpu_torch.train.state"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "ucnerf_tpu" or m.startswith("ucnerf_tpu.")]
 assert not bad, bad

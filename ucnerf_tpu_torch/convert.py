@@ -1,11 +1,13 @@
-"""Carry parameters from the JAX package into the port.
+"""Carry parameters between the JAX package and the port.
 
 ``params_from_jax(tree)`` takes the JAX model's parameter tree (nested dicts
 of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) and returns the
-port's ``state_dict``.  The port's modules carry the JAX names, so the only
-changes are the dotted keys and the dense kernels: JAX stores them [in, out]
-as ``kernel``, torch as ``weight`` [out, in].  Hash tables stay channel-major
-[C, rows] on both sides.
+port's ``state_dict``; ``params_to_jax(state_dict)`` is its inverse (used to
+compare the port's gradients with a JAX gradient tree leaf by leaf).  The
+port's modules carry the JAX names, so the only changes are the dotted keys
+and the dense kernels: JAX stores them [in, out] as ``kernel``, torch as
+``weight`` [out, in].  Hash tables stay channel-major [C, rows] on both
+sides.
 """
 
 from __future__ import annotations
@@ -30,3 +32,20 @@ def params_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
             arr = arr.T
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def params_to_jax(state_dict: Mapping) -> Dict:
+    """The port's state_dict (or any name -> tensor map, e.g. gradients) ->
+    a JAX-style nested dict of float32 numpy arrays."""
+    tree: Dict = {}
+    for name, value in state_dict.items():
+        *path, key = name.split(".")
+        arr = np.array(value.detach().cpu().numpy(), np.float32)
+        if key == "weight":
+            key = "kernel"
+            arr = arr.T
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(arr)
+    return tree

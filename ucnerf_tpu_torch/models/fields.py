@@ -94,19 +94,25 @@ class ZipMLP(nn.Module):
                     width += inputs
             self.rgb_layer = DenseCM(width, cfg.num_rgb_channels, generator)
 
-    def forward(self, means, stds, viewdirs=None):
+    def forward(self, means, stds, viewdirs=None, train=False):
         """Evaluate the field.
 
         Args:
           means: [3, 6, R, S] multisample Gaussian means (channel-major).
           stds: [6, R, S] multisample stds.
           viewdirs: [R, 3] per-ray view directions.
+          train: training forward.  The density and bottleneck noise of the
+            JAX package's keyed training forward are not ported (0 in every
+            preset); asking for them raises.
 
         Returns:
           dict with density [R, S], rgb [3, R, S], coord [3, R, S] and
           normals/normals_pred None.
         """
         cfg = self.config
+        if train and (cfg.density_noise > 0 or cfg.bottleneck_noise > 0):
+            raise NotImplementedError("density/bottleneck noise is not "
+                                      "ported yet")
         _, _, r, s = means.shape
         m = r * s
         if cfg.warp_fn is not None:
@@ -120,7 +126,9 @@ class ZipMLP(nn.Module):
             x01 = x01.mean(dim=1, keepdim=True)  # [3, 1, M]
         feats, _ = hashgrid.encode_hex_cm(
             x01, stds.reshape(6, m), self.table, self.grid_spec,
-            gather_bf16=cfg.grid_bf16_gather)
+            gather_bf16=cfg.grid_bf16_gather,
+            bwd_dense_sample=cfg.grid_bwd_dense_sample,
+            bwd_value_dtype=cfg.grid_bwd_value_dtype)
         del x01
         x = self.density_out(torch.relu(self.density_hidden(feats)))
         raw_density = x[0].reshape(r, s)

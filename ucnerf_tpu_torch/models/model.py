@@ -1,9 +1,15 @@
-"""The UC-NeRF model, render half (port of ``ucnerf_tpu/models/model.py``).
+"""The UC-NeRF model (port of ``ucnerf_tpu/models/model.py``).
 
-Zip-NeRF proposal hierarchy + sky NeRF + per-view affine color correction,
-evaluated deterministically (the JAX ``__call__`` with ``key=None`` and
-``train=False``).  Submodules carry the JAX parameter tree's names
+Zip-NeRF proposal hierarchy + sky NeRF + per-view affine color correction.
+The forward is deterministic (the JAX ``__call__`` with ``key=None``) unless
+a ``torch.Generator`` is given, from which it draws what the JAX keyed
+forward draws: the per-level sampling jitter and the hex pattern's flip,
+rotation and basis vector.  Submodules carry the JAX parameter tree's names
 (``nerf_mlp``, ``prop_mlp_0``, ``skynerf``, ``brightness_corr``).
+
+The JAX package wraps the fields in ``jax.checkpoint`` (``remat_fields``),
+for the TPU's 16 GB: the port keeps the activations and never recomputes
+in the backward, so it ignores ``remat_fields``.
 
 Ray batch convention (flat tensors, [N, ...]): origins, directions,
 viewdirs, cam_dirs [N, 3]; radii, near, far [N, 1]; cam_idx [N] int.
@@ -21,7 +27,8 @@ from ucnerf_tpu_torch.configs import Config
 from ucnerf_tpu_torch.models.brightness import BrightnessCorrection, apply_affine
 from ucnerf_tpu_torch.models.fields import ZipMLP
 from ucnerf_tpu_torch.models.sky import SkyNeRF, render_sky
-from ucnerf_tpu_torch.ops import coord, grad_scaler, rendering, stepfun
+from ucnerf_tpu_torch.ops import (coord, grad_scaler, hashgrid, rendering,
+                                  stepfun)
 
 
 class UCNeRFModel(nn.Module):
@@ -56,18 +63,24 @@ class UCNeRFModel(nn.Module):
                 net_depth=mcfg.brightness_net_depth,
                 net_width=mcfg.brightness_net_width)
 
-    def forward(self, batch, train_frac, rand_vec, compute_extras=False,
-                eval_camidx=None):
-        """Render a flat ray batch deterministically.
+    def forward(self, batch, train_frac, rand_vec=None, compute_extras=False,
+                eval_camidx=None, train=False, generator=None):
+        """Render a flat ray batch.
 
         Args:
           batch: dict of ray tensors (see module docstring).
           train_frac: float in [0, 1], fraction of training complete.
-          rand_vec: [N, 3] random vector fixing each ray's hex basis (the JAX
-            package draws it from PRNGKey(0); see ops/rendering.py).
+          rand_vec: [N, 3] random vector fixing each ray's hex basis at every
+            level (the JAX package draws it from PRNGKey(0) when
+            ``key=None``; see ops/rendering.py).  Required without a
+            generator, refused with one.
           compute_extras: compute distance statistics.
           eval_camidx: optional int, the brightness-correction view id for
             every ray.
+          train: training forward (adds ``loss_hash_decay`` to each level of
+            the ray history).
+          generator: optional torch.Generator on the batch's device; the
+            random draws of the JAX keyed forward come from it.
 
         Returns:
           (renderings, ray_history): one dict per sampling level each.
@@ -75,6 +88,13 @@ class UCNeRFModel(nn.Module):
         cfg = self.config
         mcfg = cfg.model
         near, far = batch["near"], batch["far"]
+        n, dev = near.shape[0], near.device
+        if (generator is None) == (rand_vec is None):
+            raise ValueError("pass exactly one of rand_vec and generator")
+        lo_bg, hi_bg = mcfg.bg_intensity_range
+        if generator is not None and lo_bg != hi_bg:
+            raise NotImplementedError("random background colours are not "
+                                      "ported yet")
 
         _, s_to_t = coord.construct_ray_warps(
             mcfg.raydist_fn, near, far, mcfg.power_lambda)
@@ -118,21 +138,34 @@ class UCNeRFModel(nn.Module):
                 sdist[..., 1:] > sdist[..., :-1],
                 anneal * torch.log(weights + mcfg.resample_padding),
                 torch.full_like(weights, -float("inf")))
+            jitter = None
+            if generator is not None:
+                d = 1 if mcfg.single_jitter else num_samples
+                jitter = torch.rand((n, d), generator=generator, device=dev)
             sdist = stepfun.sample_intervals(
                 sdist, logits_resample, num_samples,
-                domain=(init_s_near, init_s_far))
+                domain=(init_s_near, init_s_far), jitter=jitter)
+            if mcfg.stop_level_grad:
+                sdist = sdist.detach()
             tdist = s_to_t(sdist)
 
             # Channel-major: means [3, 6, R, S], stds/ts [6, R, S].
+            flip = rot = None
+            basis = rand_vec
+            if generator is not None:
+                flip, rot = (torch.rand((n, num_samples), generator=generator,
+                                        device=dev) for _ in range(2))
+                basis = torch.randn((n, 3), generator=generator, device=dev)
             means, stds, ts = rendering.cast_rays_cm(
                 tdist, batch["origins"], batch["directions"],
-                batch["cam_dirs"], batch["radii"], rand_vec,
-                std_scale=mcfg.std_scale)
+                batch["cam_dirs"], batch["radii"], basis,
+                std_scale=mcfg.std_scale, flip=flip, rot=rot)
             mlp = getattr(self, f"prop_mlp_{i_level}") if is_prop \
                 else self.nerf_mlp
             ray_results = mlp(
                 means, stds,
-                viewdirs=batch["viewdirs"] if mcfg.use_viewdirs else None)
+                viewdirs=batch["viewdirs"] if mcfg.use_viewdirs else None,
+                train=train)
             del means, stds
 
             if cfg.brightness_correction:
@@ -153,6 +186,10 @@ class UCNeRFModel(nn.Module):
                 extras={k: v for k, v in ray_results.items()
                         if k.startswith("normals")})
             level_render["weights"] = weights
+            if train:
+                # Hash decay: per-level mean of squared embeddings.
+                ray_results["loss_hash_decay"] = hashgrid.hash_decay_means(
+                    mlp.table, mlp.grid_spec).mean()
             renderings.append(level_render)
             ray_results["sdist"] = sdist
             ray_results["weights"] = weights
@@ -163,7 +200,7 @@ class UCNeRFModel(nn.Module):
         # Sky layer beyond the far plane, composited with (1 - acc) after
         # the per-view color correction.
         if cfg.model_sky:
-            sky_far = torch.full_like(far, float(far[0, 0]) * mcfg.sky_far_mult)
+            sky_far = (far[0, 0].detach() * mcfg.sky_far_mult).expand_as(far)
             sky_rgb = render_sky(
                 self.skynerf, batch["origins"], batch["directions"], far,
                 sky_far, mcfg.sky_num_samples,
@@ -176,8 +213,8 @@ class UCNeRFModel(nn.Module):
             if eval_camidx is None:
                 camera_idxs = batch["cam_idx"].reshape(-1)
             else:
-                camera_idxs = torch.full((near.shape[0],), int(eval_camidx),
-                                         dtype=torch.long, device=near.device)
+                camera_idxs = torch.full((n,), int(eval_camidx),
+                                         dtype=torch.long, device=dev)
             affine, affine_sky = self.brightness_corr(camera_idxs)
             for r in renderings:
                 rgb_cc = apply_affine(affine, r["rgb"])

@@ -50,13 +50,10 @@ def take_cm(table, idx, bf16: bool = False):
 
     The table may be a column slice of a larger table (a hash level's rows):
     its row stride must be 1, its channel stride is passed to the kernel.
-    Returns a new [C, *idx.shape] float32 tensor.  The table gradient is not
-    ported yet, so a table that requires grad raises under grad mode.
+    Returns a new [C, *idx.shape] float32 tensor.  The kernel has no
+    backward of its own: the table gradient is ``hashgrid``'s autograd
+    Function, whose forward calls this on the detached table.
     """
-    if table.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the hash-table gradient (scatter kernels K1/K2) is not ported "
-            "yet; run the forward under torch.no_grad()")
     if table.device != idx.device:
         raise ValueError(f"table on {table.device}, idx on {idx.device}")
     if table.device.type == "cpu":

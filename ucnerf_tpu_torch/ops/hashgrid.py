@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid encoder, forward (port of ``ucnerf_tpu/ops/hashgrid.py``).
+"""Multiresolution hash-grid encoder (port of ``ucnerf_tpu/ops/hashgrid.py``).
 
 Table layout, level offsets, per-level resolutions and the prime-XOR hash
 are those of the JAX package (and so of the reference ``gridencoder.cu``).
@@ -7,9 +7,13 @@ slice of the channel-major ``[C, rows]`` table (the CUDA kernel on the card),
 and the corners are summed right after each level's gather, so no
 ``[C, L*8*H*M]`` array ever exists.
 
-The table gradient (the Pallas scatter kernels) and ``tv_loss`` come with the
-training slice; until then ``take_cm`` raises if a table gradient is asked
-for.
+When the table requires grad, the gathers and corner sums run inside
+``_GatherWSum``, the counterpart of the JAX ``_gather_wsum_ml`` custom VJP:
+its backward fills the table gradient with the scatter kernels, K2
+(``scatter.scatter_add_dense_cm``) for the dense-prefix levels when
+``bwd_dense_sample`` is on and K1 (``scatter.scatter_add_cm``) for the other
+levels.  ``tv_loss`` and ``level_sq_means`` have no caller on the ported
+paths and are not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ucnerf_tpu_torch.ops import gather
+from ucnerf_tpu_torch.ops import gather, scatter
 
 # Prime constants of the spatial hash (gridencoder.cu:54).
 _PRIMES = (1, 2654435761, 805459861)
@@ -164,8 +168,109 @@ def _corner_index_components(spec: HashGridSpec, level: int, cx, cy, cz):
     return index % hashmap_size
 
 
+def _level_corners(spec: HashGridSpec, level: int, xs):
+    """Level-local corner rows idx [8, H, M] int32, trilinear weights
+    w [8, H, M] and fractional coords frac [3, H, M] of points xs [3, H, M]
+    (clamped to the unit cube)."""
+    scale = float(np.float32(spec.cuda_scales[level]))
+    pos = xs * scale + 0.5
+    pos_floor = torch.floor(pos)
+    frac = pos - pos_floor
+    pg = pos_floor.long()  # [3, H, M]
+    idx = []
+    w = []
+    for corner in range(8):
+        wc = None
+        comps = []
+        for d in range(3):
+            if corner & (1 << d):
+                f = frac[d]
+                comps.append(pg[d] + 1)
+            else:
+                f = 1 - frac[d]
+                comps.append(pg[d])
+            wc = f if wc is None else wc * f
+        idx.append(_corner_index_components(spec, level, *comps)
+                   .to(torch.int32))
+        w.append(wc)
+    return torch.stack(idx), torch.stack(w), frac
+
+
+class _GatherWSum(torch.autograd.Function):
+    """Per-level gather + trilinear corner sum with the table gradient
+    (the JAX ``_gather_wsum_ml``, hashgrid.py:210-345).
+
+    Forward: for each level l, K4 over the level's slice of the table
+    (``gather.take_cm``) and the weighted sum over the 8 corners.  It saves
+    the corner indices and weights (and the fractional coords of the dense
+    levels); the gathered rows are saved only when the weights need a
+    gradient, which they do not on the Waymo path (``track_linearize_cm``
+    stops gradients to the means).
+
+    Backward: one [C, rows] gradient buffer.  The first ``nd`` (dense) levels
+    are filled by K2 from the per-sample feature grads, fractional coords
+    and corner-0 rows; the rest by K1 from the corner-expanded ``w * g``.
+    Each kernel writes every row of its range, so the buffer needs no
+    zeroing, and the TPU's tile-offset assembly (hashgrid.py:292-319) has no
+    counterpart.
+    """
+
+    @staticmethod
+    def forward(ctx, table, idx, w, frac, spec, nd, bf16):
+        """table [C, rows]; idx, w [L, 8, N] (level-local rows); frac
+        [nd, 3, N].  Returns the per-level corner sums [L, C, N]."""
+        keep_rows = ctx.needs_input_grad[2]
+        t = table.detach()
+        outs, rows_kept = [], []
+        for level in range(spec.num_levels):
+            lo, hi = spec.offsets[level], spec.offsets[level + 1]
+            rows = gather.take_cm(t[:, lo:hi], idx[level], bf16=bf16)
+            outs.append((rows * w[level][None]).sum(dim=1))
+            if keep_rows:
+                rows_kept.append(rows)
+            del rows
+        ctx.save_for_backward(idx, w, frac, *rows_kept)
+        ctx.spec, ctx.nd = spec, nd
+        return torch.stack(outs)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w, frac, *rows = ctx.saved_tensors
+        spec, nd = ctx.spec, ctx.nd
+        num_levels, c, n = g.shape
+        offsets = spec.offsets
+        g = g.contiguous()
+        d_table = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_table = torch.empty((c, spec.table_rows), dtype=torch.float32,
+                                  device=g.device)
+            dense_rows = offsets[nd]
+            if nd:
+                scatter.scatter_add_dense_cm(
+                    g[:nd].transpose(0, 1).reshape(c, nd * n),
+                    frac.transpose(0, 1).reshape(3, nd * n),
+                    torch.cat([idx[l, 0] + offsets[l] for l in range(nd)]),
+                    dense_rows, level_len=n, strides=spec.dense_strides[:nd],
+                    level_offsets=offsets[:nd + 1],
+                    out=d_table[:, :dense_rows])
+            if nd < num_levels:
+                # Level-major, corner, sample: hashgrid.py:302-304.
+                vals = (w[nd:, None] * g[nd:, :, None]).transpose(0, 1)
+                scatter.scatter_add_cm(
+                    vals.reshape(c, -1),
+                    torch.cat([(idx[l] + (offsets[l] - dense_rows))
+                               .reshape(-1) for l in range(nd, num_levels)]),
+                    spec.table_rows - dense_rows,
+                    out=d_table[:, dense_rows:])
+        if ctx.needs_input_grad[2]:
+            d_w = torch.stack([torch.einsum("chs,cs->hs", rows[l], g[l])
+                               for l in range(num_levels)])
+        return d_table, None, d_w, None, None, None, None
+
+
 def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
-                  gather_bf16: bool = False):
+                  gather_bf16: bool = False, bwd_dense_sample: bool = False,
+                  bwd_value_dtype=None):
     """Channel-major hash encode with erf weighting + hex-mean folded in.
 
     Semantically equals the reference's per-point encode followed by the erf
@@ -173,6 +278,11 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
     (models.py:494-496).  The hex axis of x01 may have size 1
     (``hex_single_query``): one lookup per sample at the hex-mean position,
     modulated by the mean erf weight over the 6 stds.
+
+    When grad mode is on and the table requires grad, the lookups go through
+    ``_GatherWSum``, whose backward runs the scatter kernels; otherwise each
+    level is gathered and summed on its own (the render path: one K4 launch
+    per level either way).
 
     Args:
       x01: [3, H, M] unit-cube coordinates (H = 6 or 1); points outside
@@ -183,56 +293,64 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
       grid_sizes: optional [L] resolutions for the erf weight; defaults to
         spec.resolutions.
       gather_bf16: round the gathered features to bf16
-        (``MLPConfig.grid_bf16_gather``).
+        (``MLPConfig.grid_bf16_gather``); table gradients stay f32.
+      bwd_dense_sample: fill the dense-prefix levels' table gradient with
+        K2 (``MLPConfig.grid_bwd_dense_sample``); otherwise K1 covers every
+        level.
+      bwd_value_dtype: only None: the bf16-packed backward (K3) is not
+        ported, and asking for it with a table gradient raises.
 
     Returns:
       feats [L*C, M] and wmeans [L, M] (per-level mean erf weight).
     """
     if grid_sizes is None:
         grid_sizes = np.asarray(spec.resolutions, np.float32)
+    c_dim = spec.level_dim
     hex_n, m = x01.shape[1], x01.shape[2]
+    fused = torch.is_grad_enabled() and table.requires_grad
+    if fused and bwd_value_dtype is not None:
+        raise NotImplementedError(
+            "grid_bwd_value_dtype (the bf16-packed scatter, K3) is not "
+            "ported yet")
+    nd = spec.dense_prefix if bwd_dense_sample else 0
 
     oob = ((x01 < 0) | (x01 > 1)).any(dim=0)  # [H, M]
     xs = torch.clamp(x01, 0.0, 1.0)
 
+    acc_levels, erf_levels = [], []
+    idx_parts, w_parts, frac_parts = [], [], []
+    for level in range(spec.num_levels):
+        if stds is not None:
+            gs2 = float(np.float32(grid_sizes[level]) ** 2)
+            erf_levels.append(torch.erf(1.0 / torch.sqrt(8.0 * stds**2 * gs2)))
+        else:
+            erf_levels.append(torch.ones((hex_n, m), dtype=x01.dtype,
+                                         device=x01.device))
+        idx, w, frac = _level_corners(spec, level, xs)
+        if fused:
+            idx_parts.append(idx.reshape(8, hex_n * m))
+            w_parts.append(w.reshape(8, hex_n * m))
+            if level < nd:
+                frac_parts.append(frac.detach().reshape(3, hex_n * m))
+            continue
+        lo, hi = spec.offsets[level], spec.offsets[level + 1]
+        rows = gather.take_cm(table[:, lo:hi], idx,
+                              bf16=gather_bf16)  # [C, 8, H, M]
+        acc_levels.append((rows * w[None]).sum(dim=1))  # [C, H, M]
+        del rows, idx, w
+
+    if fused:
+        frac_lvl = (torch.stack(frac_parts) if nd else
+                    x01.new_zeros((0, 3, hex_n * m)))
+        parts = _GatherWSum.apply(table, torch.stack(idx_parts),
+                                  torch.stack(w_parts), frac_lvl, spec, nd,
+                                  gather_bf16)
+        acc_levels = list(parts.reshape(spec.num_levels, c_dim, hex_n, m))
+
     feats = []
     wmeans = []
     for level in range(spec.num_levels):
-        scale = float(np.float32(spec.cuda_scales[level]))
-        pos = xs * scale + 0.5
-        pos_floor = torch.floor(pos)
-        frac = pos - pos_floor
-        pg = pos_floor.long()  # [3, H, M]
-
-        if stds is not None:
-            gs2 = float(np.float32(grid_sizes[level]) ** 2)
-            w_erf = torch.erf(1.0 / torch.sqrt(8.0 * stds**2 * gs2))
-        else:
-            w_erf = torch.ones((hex_n, m), dtype=x01.dtype,
-                               device=x01.device)
-
-        idx = []
-        w = []
-        for corner in range(8):
-            wc = None
-            comps = []
-            for d in range(3):
-                if corner & (1 << d):
-                    f = frac[d]
-                    comps.append(pg[d] + 1)
-                else:
-                    f = 1 - frac[d]
-                    comps.append(pg[d])
-                wc = f if wc is None else wc * f
-            idx.append(_corner_index_components(spec, level, *comps)
-                       .to(torch.int32))
-            w.append(wc)
-        lo, hi = spec.offsets[level], spec.offsets[level + 1]
-        rows = gather.take_cm(table[:, lo:hi], torch.stack(idx),
-                              bf16=gather_bf16)  # [C, 8, H, M]
-        acc = (rows * torch.stack(w)[None]).sum(dim=1)  # [C, H, M]
-        del rows, idx, w
-
+        acc, w_erf = acc_levels[level], erf_levels[level]
         if hex_n == w_erf.shape[0]:
             # Hex mode: per-point erf weights, mean over the hex axis.
             w_valid = torch.where(oob, torch.zeros_like(w_erf), w_erf)
@@ -245,3 +363,11 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
             feats.append(acc[:, 0] * w_single[None])
         wmeans.append(w_erf.mean(dim=0))
     return torch.cat(feats, dim=0), torch.stack(wmeans, dim=0)
+
+
+def hash_decay_means(table, spec: HashGridSpec):
+    """Per-level mean of squared embeddings: [L] (the JAX
+    ``hash_decay_means``, the reference's segment_coo scatter-mean)."""
+    return torch.stack([
+        torch.mean(table[:, spec.offsets[l]:spec.offsets[l + 1]] ** 2)
+        for l in range(spec.num_levels)])

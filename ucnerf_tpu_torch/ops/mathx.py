@@ -1,12 +1,16 @@
 """Numerically-safe math helpers (port of ``ucnerf_tpu/ops/mathx.py``).
 
-Only what the render path needs: ``EPS`` and the masked-extrema formulation
-of sorted interpolation.  The JAX package's ``take_along_last`` (a one-hot
-MXU contraction, a TPU workaround for slow trailing-axis gathers) has no
-counterpart here: where the port needs it, it calls ``torch.gather``.
+``EPS``, the masked-extrema formulations of sorted (linear and quadratic)
+interpolation, and the log-lerp learning-rate schedule.  The JAX package's
+``take_along_last`` (a one-hot MXU contraction, a TPU workaround for slow
+trailing-axis gathers) has no counterpart here: the port calls
+``torch.gather``.  ``safe_exp`` and ``override_gradient`` have no caller in
+the JAX package and are not ported.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -51,3 +55,46 @@ def sorted_interp(x, xp, fp):
     offset = torch.clamp(torch.nan_to_num((x - xp0) / (xp1 - xp0), nan=0.0),
                          0, 1)
     return fp0 + offset * (fp1 - fp0)
+
+
+def sorted_interp_quad(x, xp, fpdf, fcdf):
+    """Piecewise-quadratic CDF interpolation: the CDF ``fcdf`` of a
+    piecewise-linear PDF ``fpdf`` on knots ``xp``, at the points x.
+
+    First-occurrence argmax/argmin pick the interval ends, as the JAX
+    package (and the reference's torch.max/min indices) do."""
+    mask = x[..., None, :] >= xp[..., :, None]  # [..., N, M]
+    big = torch.where(mask, fcdf[..., :, None], fcdf[..., :1, None])
+    small = torch.where(~mask, fcdf[..., :, None], fcdf[..., -1:, None])
+    fcdf0 = big.amax(dim=-2)
+    idx0 = big.argmax(dim=-2)
+    idx1 = small.argmin(dim=-2)
+    fpdf0 = torch.gather(fpdf, -1, idx0)
+    fpdf1 = torch.gather(fpdf, -1, idx1)
+    xp0, xp1 = _masked_extrema(mask, xp)
+    offset = torch.clamp(torch.nan_to_num((x - xp0) / (xp1 - xp0), nan=0.0),
+                         0, 1)
+    # Trapezoid rule on the linear PDF between xp0 and x.
+    return fcdf0 + (x - xp0) * (fpdf0 + fpdf1 * offset
+                                + fpdf0 * (1 - offset)) / 2
+
+
+def log_lerp(t: float, v0: float, v1: float) -> float:
+    """Interpolate log-linearly from v0 (t=0) to v1 (t=1)."""
+    if v0 <= 0 or v1 <= 0:
+        raise ValueError(f"Interpolants {v0} and {v1} must be positive.")
+    lv0, lv1 = math.log(v0), math.log(v1)
+    return math.exp(min(max(t, 0.0), 1.0) * (lv1 - lv0) + lv0)
+
+
+def learning_rate_decay(step: int, lr_init: float, lr_final: float,
+                        max_steps: int, lr_delay_steps: int = 0,
+                        lr_delay_mult: float = 1.0) -> float:
+    """Log-lerp LR decay with a reverse-cosine warmup, in float64 on the
+    host (the JAX package traces it in float32)."""
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0))
+    else:
+        delay_rate = 1.0
+    return delay_rate * log_lerp(step / max_steps, lr_init, lr_final)

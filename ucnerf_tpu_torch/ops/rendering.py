@@ -4,11 +4,13 @@ Zip-NeRF's hexagonal 6-point multisampling in the channel-major layout,
 alpha-compositing weights and volumetric rendering with the reference's
 depth clamp (depth = 300 where acc < 0.6).
 
-The deterministic (eval) hex pattern needs one random vector per ray for the
-camera-plane basis.  The JAX package draws it from
+The hex pattern needs one random vector per ray for the camera-plane basis.
+With ``key=None`` the JAX package draws it from
 ``jax.random.normal(PRNGKey(0), (R, 3))``, a draw torch cannot reproduce, so
 here ``rand_vec`` is always passed in: serving draws it from a seeded
 ``torch.Generator``, and the parity tests pass JAX's vector to both sides.
+Training's random flip and rotation of the pattern (the JAX keyed branch)
+are passed in the same way, as uniform draws.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ def _normalize(v):
 
 
 def cast_rays_cm(tdist, origins, directions, cam_dirs, radii, rand_vec,
-                 std_scale=0.5):
-    """Deterministic hex multisampling of conical frustums, channel-major.
+                 std_scale=0.5, flip=None, rot=None):
+    """Hex multisampling of conical frustums, channel-major.
 
     Args:
       tdist: [R, S+1] fencepost distances.
@@ -39,6 +41,10 @@ def cast_rays_cm(tdist, origins, directions, cam_dirs, radii, rand_vec,
       radii: [R, 1], base radius of the cone at distance 1.
       rand_vec: [R, 3] random vector that fixes the camera-plane basis.
       std_scale: multiplier on the per-sample Gaussian std.
+      flip, rot: None for the deterministic pattern (every other interval
+        rotated by 30 degrees and flipped), or U[0, 1) draws [R, S] that
+        flip (> 0.5 keeps) and rotate each interval's pattern, as the JAX
+        keyed branch does.
 
     Returns:
       means [3, 6, R, S], stds [6, R, S], ts [6, R, S].
@@ -61,10 +67,15 @@ def cast_rays_cm(tdist, origins, directions, cam_dirs, radii, rand_vec,
     deg = (np.pi / 3) * torch.tensor(_HEX_PATTERN, dtype=dt,
                                      device=dev).reshape(6, 1, 1)
     deg = deg.expand(6, r, s)
-    # Rotate 30 degrees and flip every other pattern.
-    mask = (torch.arange(s, device=dev) % 2 == 0)[None, None, :]
-    deg = torch.where(mask, deg, deg + np.pi / 6)
-    deg = torch.where(mask, deg, np.pi * 5 / 3 - deg)
+    if flip is not None:
+        # Randomly rotate and flip the hex pattern per interval.
+        deg = deg + 2 * np.pi * rot[None]
+        deg = torch.where((flip > 0.5)[None], deg, np.pi * 5 / 3 - deg)
+    else:
+        # Rotate 30 degrees and flip every other pattern.
+        mask = (torch.arange(s, device=dev) % 2 == 0)[None, None, :]
+        deg = torch.where(mask, deg, deg + np.pi / 6)
+        deg = torch.where(mask, deg, np.pi * 5 / 3 - deg)
 
     mx = radii_b * t * torch.cos(deg) / 2**0.5  # [6, R, S]
     my = radii_b * t * torch.sin(deg) / 2**0.5

@@ -1,0 +1,83 @@
+"""Train state and optimizer (port of ``ucnerf_tpu/train/state.py``).
+
+The JAX package's optax chain, in its order: NaN/Inf in the gradients set to
+0, the optional ``grad_max_val`` clip, the optional ``grad_max_norm`` clip
+(optax's formula: keep the gradients if their global norm is below the
+limit, else scale them by limit / norm), Adam (``torch.optim.Adam`` with the
+config's betas and eps), and the log-lerp learning rate with its delayed
+warm-up, evaluated at the optimizer's own update count as optax's
+``scale_by_schedule`` does.  Camera refinement (``cam_lr_mult``) is not
+ported: the model refuses ``optimize_cameras``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ucnerf_tpu_torch.configs import Config
+from ucnerf_tpu_torch.ops import mathx
+
+
+class Optimizer:
+    """The optax chain of ``create_optimizer`` over a list of parameters.
+
+    ``update()`` reads each parameter's ``.grad`` (a missing one counts as
+    zeros, as every leaf of a JAX gradient tree exists), cleans and clips the
+    gradients in place, and takes one Adam step.
+    """
+
+    def __init__(self, params, config: Config):
+        self.config = config
+        self.params = list(params)
+        self.adam = torch.optim.Adam(
+            self.params, lr=config.lr_init,
+            betas=(config.adam_beta1, config.adam_beta2), eps=config.adam_eps)
+        self.count = 0
+
+    @torch.no_grad()
+    def update(self):
+        cfg = self.config
+        grads = []
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        for g in grads:
+            torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
+        if cfg.grad_max_val > 0:
+            for g in grads:
+                g.clamp_(-cfg.grad_max_val, cfg.grad_max_val)
+        if cfg.grad_max_norm > 0:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = norm < cfg.grad_max_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * cfg.grad_max_norm))
+        lr = mathx.learning_rate_decay(self.count, cfg.lr_init, cfg.lr_final,
+                                       cfg.max_steps, cfg.lr_delay_steps,
+                                       cfg.lr_delay_mult)
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        self.adam.step()
+        self.count += 1
+
+
+def create_optimizer(config: Config, params) -> Optimizer:
+    """Adam with the reference's betas/eps and the scheduled LR."""
+    return Optimizer(params, config)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Step count, model (the parameters) and optimizer (Adam's moments and
+    the schedule's count)."""
+    step: int
+    model: nn.Module
+    optimizer: Optimizer
+
+
+def create_train_state(config: Config, model: nn.Module) -> TrainState:
+    return TrainState(step=0, model=model,
+                      optimizer=create_optimizer(config, model.parameters()))

@@ -1,11 +1,14 @@
-"""Model construction and the image renderer, serving half
+"""Model construction, the train step and the image renderer
 (port of ``ucnerf_tpu/train/step.py``: ``init_model``, ``dummy_batch``,
-``make_eval_step`` and ``render_image``).
+``make_train_step``, ``make_eval_step`` and ``render_image``).
 
-``render_image`` chunks an image's rays on the host, renders each chunk with
-the eval step (optionally in ``render_subchunks`` sequential pieces, which
-bound the activation peak at the piece's size), and reassembles numpy
-arrays.  The train step comes with the training slice.
+``make_train_step`` runs the JAX step's microbatch accumulation as one
+Python loop (the JAX scan and ``host_microbatches`` are two ways of running
+it): forward, losses and backward per microbatch, gradients summed and
+scaled by 1/microbatches, then one optimizer update.  ``render_image``
+chunks an image's rays on the host, renders each chunk with the eval step
+(optionally in ``render_subchunks`` sequential pieces, which bound the
+activation peak at the piece's size), and reassembles numpy arrays.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import torch
 
 from ucnerf_tpu_torch.configs import Config
 from ucnerf_tpu_torch.models.model import UCNeRFModel
+from ucnerf_tpu_torch.train import losses as losses_lib
+from ucnerf_tpu_torch.train.state import TrainState
 
 
 def init_model(config: Config, seed: int = 0, device="cuda") -> UCNeRFModel:
@@ -47,7 +52,78 @@ def dummy_batch(config: Config, n: int) -> Dict[str, np.ndarray]:
         "far": np.full((n, 1), config.far, np.float32),
         "cam_idx": (rng.integers(0, max(config.training_views, 1), n)
                     .astype(np.int32)),
+        "phys_cam_idx": (rng.integers(0, max(config.num_phys_cams, 1), n)
+                         .astype(np.int32)),
+        "lossmult": np.ones((n, 1), np.float32),
+        "rgb": np.full((n, 3), 0.5, np.float32),
+        "sky_segs": np.zeros((n,), np.float32),
     }
+
+
+def make_train_step(model: UCNeRFModel, config: Config):
+    """Build the train step.
+
+    Returns ``train_step(state, batch, train_frac, generator=None,
+    rand_vec=None) -> (state, stats)``.  batch is a dict of [N, ...] tensors
+    on the model's device (the ``dummy_batch`` layout), N divisible by
+    ``config.microbatches``.  With a ``torch.Generator`` the forward draws
+    its jitter and hex patterns from it (the JAX keyed step); without one it
+    is deterministic and ``rand_vec`` [N, 3] fixes the hex basis.  stats
+    holds the microbatch means of the total (``loss``), of each loss term
+    (``losses``) and of the per-level MSEs (``mses``), as tensors.
+
+    The JAX package recomputes the fields in the backward
+    (``remat_fields``, for a TPU's 16 GB); the port keeps the activations
+    and ignores that knob.
+    """
+    num_micro = max(config.microbatches, 1)
+
+    def train_step(state: TrainState, batch, train_frac, generator=None,
+                   rand_vec=None):
+        n = batch["origins"].shape[0]
+        if n % num_micro:
+            raise ValueError(f"{n} rays do not split into {num_micro} "
+                             f"microbatches")
+        size = n // num_micro
+        params = list(state.model.parameters())
+        for p in params:
+            p.grad = None
+        total_acc = losses_acc = stats_acc = None
+        for i in range(num_micro):
+            part = slice(i * size, (i + 1) * size)
+            mb = {k: v[part] for k, v in batch.items()}
+            renderings, ray_history = state.model(
+                mb, train_frac, None if rand_vec is None else rand_vec[part],
+                compute_extras=False, train=True, generator=generator)
+            total, losses, stats = losses_lib.compute_all_losses(
+                mb, renderings, ray_history, config)
+            total.backward()
+            del renderings, ray_history
+            if total_acc is None:
+                total_acc = total.detach()
+                losses_acc = {k: v.detach() for k, v in losses.items()}
+                stats_acc = {k: v.detach() for k, v in stats.items()}
+            else:
+                total_acc = total_acc + total.detach()
+                losses_acc = {k: losses_acc[k] + v.detach()
+                              for k, v in losses.items()}
+                stats_acc = {k: stats_acc[k] + v.detach()
+                             for k, v in stats.items()}
+        inv = 1.0 / num_micro
+        if num_micro > 1:
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.mul_(inv)
+        state.optimizer.update()
+        new_state = TrainState(step=state.step + 1, model=state.model,
+                               optimizer=state.optimizer)
+        out = {k: v * inv for k, v in stats_acc.items()}
+        out["loss"] = total_acc * inv
+        out["losses"] = {k: v * inv for k, v in losses_acc.items()}
+        return new_state, out
+
+    return train_step
 
 
 def make_eval_step(model: UCNeRFModel, config: Config,
