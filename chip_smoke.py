@@ -10,9 +10,11 @@ Phases:
   2. build every CUDA kernel from ucnerf_tpu_torch/csrc/, all in parallel;
   3. kernel phase: hold each kernel against its plain PyTorch version at the
      shapes the main paths give it (K4 at a render chunk's proposal level;
-     K1 and K2 at one training microbatch of each grid, with a skewed row
-     of 1e5 updates), check that the scatters are bitwise deterministic, and
-     time kernel, plain version and the nearest single PyTorch call;
+     K1, K2 and K3 at one training microbatch of each grid, with a skewed
+     row of 1e5 updates; K5, which no path calls, at the NeRF grid's hashed
+     stream in 1 and 24 chunks), check that the scatters are bitwise
+     deterministic, and time kernel, plain version and the nearest single
+     PyTorch call;
   4. render phase: render 2 views of 480x320 through ``render_image`` with
      the canonical Waymo model (``configs.waymo()``, full width, random
      weights from a seed), count the kernel launches of that run, check the
@@ -23,7 +25,16 @@ Phases:
      ``configs.waymo(lr_delay_steps=0)`` (15000 rays in 10 microbatches,
      Adam) on a fixed batch drawn from the two views; check the losses, the
      updates, the table gradients and the launches of K1, K2 and K4;
-  7. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+  7. bf16 training phase: the same model from the same initial state with
+     ``grid_bwd_value_dtype='bfloat16'`` on both fields, one warm-up and 2
+     timed steps; K3 takes K1's place (20 K3, 20 K2, 160 K4 and no K1 launch
+     a step), and the first step's table gradients stay within 1 % relative
+     L2 of the f32 phase's;
+  8. CLI phase: ``ucnerf_tpu_torch.cli.train`` in-process on the synthetic
+     scene (``--preset synthetic_quality`` with the bf16 backward): 30
+     steps, a test render, checkpoints, then a second call that resumes at
+     step 30 and ends at 40;
+  9. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
      the last line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -34,10 +45,14 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,9 +79,22 @@ SCATTER_ATOL_FRAC = 1e-6
 # One row of each scatter input takes this many updates: the skew of a
 # coarse level, where one cell near the cameras holds most first samples.
 SKEW = 100_000
-# Training: rays per step, timed steps.
+# Training: rays per step, timed steps of the f32 and the bf16 phase.
 TRAIN_RAYS = 15000
 TRAIN_STEPS = 5
+BF16_STEPS = 2
+# The bf16 backward rounds each hashed-level update once (RNE, at most 2^-9
+# relative, 1.1e-3 rms): its first step's table gradients are held to 1 %
+# relative L2 of the f32 backward's.
+BF16_GRAD_REL_L2 = 1e-2
+# K5 is held at the chunk counts the JAX package's record names: unchunked,
+# and its best configuration.
+K5_CHUNKS = (1, 24)
+# The CLI phase: steps of the first call, of the resumed call, and the
+# checkpoint interval.
+CLI_STEPS = (30, 40)
+CLI_CHECKPOINT_EVERY = 20
+CLI_PRINT_EVERY = 10
 # GPU-vs-CPU tolerance on the 64-ray gradient check (TF32 off): loss terms
 # agree to summation order (rtol 1e-4); gradients are sums over samples with
 # cancellation and pass through the resampling, so rtol 1e-3 and an atol of
@@ -218,13 +246,15 @@ def check_scatter(torch, label, run, want64):
 
 
 def scatter_phase(torch, scatter, hashgrid, configs):
-    """K1 and K2 at the shapes of one training microbatch of each grid."""
+    """K1, K2 and K3 at the shapes of one training microbatch of each grid,
+    and K5 at the NeRF grid's hashed stream."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     c = 4
-    k1, k2 = ({"ms": 0.0, "prep_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "max_abs_err": 0.0, "per_call": []}
-              for _ in range(2))
+    k1, k2, k3 = ({"ms": 0.0, "prep_ms": 0.0, "plain_ms": 0.0,
+                   "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+                   "per_call": []} for _ in range(3))
+    k3.update(pack_ms=0.0, pack_bound_ms=0.0)
     for name, spec, hm in grid_specs(configs, hashgrid):
         nd = spec.dense_prefix
         dense_rows = spec.offsets[nd]
@@ -239,10 +269,19 @@ def scatter_phase(torch, scatter, hashgrid, configs):
         values = torch.randn((c, m), generator=gen, device=dev)
         out = torch.empty((c, hashed_rows), device=dev)
         perm, starts = scatter.sort_rows(idx, hashed_rows)
-        err = check_scatter(
-            torch, f"K1 {name}",
-            lambda: scatter.segment_sum_cm(values, perm, starts, out),
-            scatter.scatter_add_cm_plain(values.double(), idx, hashed_rows))
+        want64 = scatter.scatter_add_cm_plain(values.double(), idx,
+                                              hashed_rows)
+        # The wrapper as the training step calls it (sort, runs and launch,
+        # into a given buffer), then the launch alone on a prepared sort,
+        # which is what the times below split.
+        err = max(
+            check_scatter(torch, f"K1 {name} (wrapper)",
+                          lambda: scatter.scatter_add_cm(
+                              values, idx, hashed_rows, out=out), want64),
+            check_scatter(torch, f"K1 {name}",
+                          lambda: scatter.segment_sum_cm(values, perm, starts,
+                                                         out), want64))
+        del want64
         idx64 = idx.long()
         call = {
             "grid": name, "M": m, "rows": hashed_rows,
@@ -257,6 +296,51 @@ def scatter_phase(torch, scatter, hashgrid, configs):
             "bound_ms": (m * (8 + 4 * c) + (hashed_rows + 1) * 4
                          + hashed_rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
             "max_abs_err": err}
+        # K3 on the same stream: the updates rounded to bf16 and packed.
+        rounded = values.to(torch.bfloat16).float()
+        packed = scatter.pack_bf16_pairs(values)
+        check(torch.equal(scatter.unpack_bf16_pairs(packed), rounded),
+              f"K3 {name}: pack -> unpack differs from the bf16 rounding")
+        want64 = scatter.scatter_add_cm_plain(rounded.double(), idx,
+                                              hashed_rows)
+        errp = max(
+            check_scatter(torch, f"K3 {name} (wrapper)",
+                          lambda: scatter.scatter_add_packed_cm(
+                              values, idx, hashed_rows, out=out), want64),
+            check_scatter(torch, f"K3 {name} (wrapper, new buffer)",
+                          lambda: scatter.scatter_add_packed_cm(
+                              values, idx, hashed_rows), want64),
+            check_scatter(torch, f"K3 {name}",
+                          lambda: scatter.packed_sum_cm(packed, perm, starts,
+                                                        out), want64))
+        del want64
+        # The same walk in the same order: K3 is K1 on the rounded updates,
+        # bit for bit.
+        check(torch.equal(
+            scatter.packed_sum_cm(packed, perm, starts, out),
+            scatter.segment_sum_cm(rounded, perm, starts,
+                                   torch.empty_like(out))),
+            f"K3 {name}: differs from K1 on the bf16-rounded updates")
+        callp = {
+            "grid": name, "M": m, "rows": hashed_rows,
+            "ms": time_ms(lambda: scatter.packed_sum_cm(packed, perm, starts,
+                                                        out), torch),
+            "pack_ms": time_ms(lambda: scatter.pack_bf16_pairs(values),
+                               torch),
+            "prep_ms": time_ms(lambda: scatter.sort_rows(idx, hashed_rows),
+                               torch),
+            "plain_ms": time_ms(lambda: scatter.scatter_add_packed_cm_plain(
+                values, idx, hashed_rows, out), torch),
+            "library_ms": time_ms(lambda: out.zero_().index_add_(
+                1, idx64, rounded), torch),
+            "bound_ms": (m * (8 + 2 * c) + (hashed_rows + 1) * 4
+                         + hashed_rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
+            "pack_bound_ms": m * (4 * c + 2 * c) / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": errp}
+        del rounded, packed
+        if name == "nerf":
+            k5 = chunked_phase(torch, scatter, values, idx, hashed_rows,
+                               perm, starts, call)
         del values, out, perm, starts, idx, idx64
         # K2: one sample per point in a random cell of each dense level.
         bases = []
@@ -273,13 +357,19 @@ def scatter_phase(torch, scatter, hashgrid, configs):
         outd = torch.empty((c, dense_rows), device=dev)
         kw = dict(level_len=hm, strides=spec.dense_strides)
         perm, starts = scatter.sort_rows(base, dense_rows)
-        errd = check_scatter(
-            torch, f"K2 {name}",
-            lambda: scatter.dense_sum_cm(g, fr, perm, starts,
-                                         spec.offsets[:nd + 1],
-                                         spec.dense_strides, outd),
-            scatter.scatter_add_dense_cm_plain(g.double(), fr, base,
-                                               dense_rows, **kw))
+        want64 = scatter.scatter_add_dense_cm_plain(g.double(), fr, base,
+                                                    dense_rows, **kw)
+        errd = max(
+            check_scatter(torch, f"K2 {name} (wrapper)",
+                          lambda: scatter.scatter_add_dense_cm(
+                              g, fr, base, dense_rows, out=outd,
+                              level_offsets=spec.offsets[:nd + 1], **kw),
+                          want64),
+            check_scatter(torch, f"K2 {name}",
+                          lambda: scatter.dense_sum_cm(
+                              g, fr, perm, starts, spec.offsets[:nd + 1],
+                              spec.dense_strides, outd), want64))
+        del want64
         # The library yardstick: index_add_ over the corner-expanded updates.
         frb = fr.to(torch.bfloat16).float()
         vals8, idx8 = [], []
@@ -307,18 +397,23 @@ def scatter_phase(torch, scatter, hashgrid, configs):
                          + dense_rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
             "max_abs_err": errd}
         del g, fr, outd, perm, starts, base, vals8, idx8, frb
-        for entry, rec in ((k1, call), (k2, calld)):
+        for entry, rec in ((k1, call), (k2, calld), (k3, callp)):
             entry["per_call"].append(rec)
-            for k in ("ms", "prep_ms", "plain_ms", "library_ms", "bound_ms"):
-                entry[k] += rec[k]
+            for k in ("ms", "prep_ms", "plain_ms", "library_ms", "bound_ms",
+                      "pack_ms", "pack_bound_ms"):
+                if k in rec:
+                    entry[k] += rec[k]
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        rec["max_abs_err"])
-        for label, rec in (("K1", call), ("K2", calld)):
+        for label, rec in (("K1", call), ("K2", calld), ("K3", callp)):
+            pack = (f"pack {rec['pack_ms']:.4f} (bound "
+                    f"{rec['pack_bound_ms']:.4f}), " if "pack_ms" in rec
+                    else "")
             print(f"[kernel] {label} {name} M={rec['M']} rows={rec['rows']}: "
-                  f"{rec['ms']:.4f} ms (prep {rec['prep_ms']:.4f}, plain "
-                  f"{rec['plain_ms']:.4f}, index_add_ {rec['library_ms']:.4f}"
-                  f", bound {rec['bound_ms']:.4f}), max abs err "
-                  f"{rec['max_abs_err']:.3g}", flush=True)
+                  f"{rec['ms']:.4f} ms ({pack}prep {rec['prep_ms']:.4f}, "
+                  f"plain {rec['plain_ms']:.4f}, index_add_ "
+                  f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}), "
+                  f"max abs err {rec['max_abs_err']:.3g}", flush=True)
     torch.cuda.empty_cache()
     k1.update(name="scatter_add_cm (hashed-level table gradient, K1)",
               route="cuda", source="ucnerf_tpu_torch/csrc/scatter.cu",
@@ -326,7 +421,77 @@ def scatter_phase(torch, scatter, hashgrid, configs):
     k2.update(name="scatter_add_dense_cm (dense-level table gradient, K2)",
               route="cuda", source="ucnerf_tpu_torch/csrc/scatter.cu",
               replaces="ucnerf_tpu/ops/scatter.py:604", bound_by="bytes")
-    return k1, k2
+    k3.update(name="scatter_add_packed_cm (bf16-packed hashed-level table "
+              "gradient, K3)", route="cuda",
+              source="ucnerf_tpu_torch/csrc/scatter.cu",
+              replaces="ucnerf_tpu/ops/scatter.py:406", bound_by="bytes")
+    return k1, k2, k3, k5
+
+
+def chunked_phase(torch, scatter, values, idx, rows, perm, starts, k1_call):
+    """K5 on a stream K1 was just held at: against the float64 plain
+    version, bitwise across two launches, and against K1's result, at each
+    chunk count; its times beside K1's on the same stream."""
+    c, m = values.shape
+    want64 = scatter.scatter_add_chunked_cm_plain(values.double(), idx, rows)
+    k1_out = scatter.segment_sum_cm(
+        values, perm, starts, torch.empty((c, rows), device=values.device))
+    out = torch.empty((c, rows), device=values.device)
+    idx64 = idx.long()
+    plain_ms = time_ms(lambda: scatter.scatter_add_chunked_cm_plain(
+        values, idx, rows), torch)
+    library_ms = time_ms(lambda: out.zero_().index_add_(1, idx64, values),
+                         torch)
+    calls = []
+    for chunks in K5_CHUNKS:
+        keys, cperm = scatter.sort_chunks(idx, chunks)
+        err = max(
+            check_scatter(torch, f"K5 G={chunks} (wrapper)",
+                          lambda: scatter.scatter_add_chunked_cm(
+                              values, idx, rows, num_chunks=chunks), want64),
+            check_scatter(torch, f"K5 G={chunks}",
+                          lambda: scatter.chunked_sum_cm(values, keys, cperm,
+                                                         chunks, out),
+                          want64))
+        diff = (out - k1_out).abs()
+        tol = SCATTER_RTOL * k1_out.abs() + SCATTER_ATOL_FRAC * float(
+            k1_out.abs().max())
+        check(bool((diff <= tol).all()),
+              f"K5 G={chunks} differs from K1 by {float(diff.max())}")
+        rec = {
+            "num_chunks": chunks, "M": m, "rows": rows,
+            "ms": time_ms(lambda: scatter.chunked_sum_cm(
+                values, keys, cperm, chunks, out), torch, reps=5),
+            "prep_ms": time_ms(lambda: scatter.sort_chunks(idx, chunks),
+                               torch),
+            "k1_ms": k1_call["ms"], "k1_prep_ms": k1_call["prep_ms"],
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": (m * (4 + 8 + 4 * c) + rows * 4 * c)
+            / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": err, "max_abs_diff_from_k1": float(diff.max())}
+        calls.append(rec)
+        print(f"[kernel] K5 G={chunks} M={m} rows={rows}: {rec['ms']:.4f} ms "
+              f"(prep {rec['prep_ms']:.4f}; K1 on the same stream "
+              f"{rec['k1_ms']:.4f} + prep {rec['k1_prep_ms']:.4f}; plain "
+              f"{plain_ms:.4f}, index_add_ {library_ms:.4f}, bound "
+              f"{rec['bound_ms']:.4f}), max abs err {err:.3g}", flush=True)
+        del keys, cperm
+    # scatter_add_partial_cm has no kernel of its own: K1 per sub-chunk.
+    part = scatter.scatter_add_partial_cm(values, idx, rows, num_chunks=2)
+    diff = (part.double() - want64).abs()
+    tol = SCATTER_RTOL * want64.abs() + SCATTER_ATOL_FRAC * float(
+        want64.abs().max())
+    check(bool((diff <= tol).all()),
+          f"scatter_add_partial_cm: max abs err {float(diff.max())}")
+    del part, diff, tol
+    # The line's numbers are those of the last chunk count (24, the JAX
+    # package's best configuration); every count is under per_call.
+    k5 = dict(calls[-1], per_call=calls)
+    k5.update(name="scatter_add_chunked_cm (chunk-local sorts, K5; no "
+              "caller on any path)", route="cuda",
+              source="ucnerf_tpu_torch/csrc/scatter_chunked.cu",
+              replaces="ucnerf_tpu/ops/scatter.py:816", bound_by="bytes")
+    return k5
 
 
 def waymo_views(cameras, cfg):
@@ -344,7 +509,7 @@ def waymo_views(cameras, cfg):
     return views
 
 
-def slice_phase(torch, gather, configs, cameras, step):
+def slice_phase(torch, gather, scatter, configs, cameras, step):
     cfg = configs.waymo()
     model = step.init_model(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -371,14 +536,15 @@ def slice_phase(torch, gather, configs, cameras, step):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gather.take_cm.launches = 0
+    reset_launches(gather, scatter)
     outs, secs = [], []
     for v in views:
         t0 = time.perf_counter()
         outs.append(step.render_image(eval_step, v, cfg, eval_camidx=0))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    launches = gather.take_cm.launches
+    by_kernel = read_launches(gather, scatter)
+    launches = by_kernel["K4"]
     peak = torch.cuda.max_memory_allocated()
 
     levels = cfg.nerf_mlp.grid_num_levels + sum(
@@ -387,6 +553,8 @@ def slice_phase(torch, gather, configs, cameras, step):
     check(launches == levels * chunks,
           f"take_cm launched {launches} times, expected {levels} per chunk "
           f"x {chunks} chunks")
+    check(sum(by_kernel.values()) == launches,
+          f"a render launched a backward kernel: {by_kernel}")
     for out in outs:
         check(out["rgb"].shape == (VIEW_H, VIEW_W, 3),
               f"rgb {out['rgb'].shape}")
@@ -428,7 +596,7 @@ def slice_phase(torch, gather, configs, cameras, step):
     print(f"[slice] 64-ray GPU vs CPU max abs err {errs} "
           f"(atol {RENDER_ATOL}, rtol {RENDER_RTOL})", flush=True)
     res = {"rays_per_s": [n / s for n, s in zip(num_rays, secs)],
-           "seconds": secs, "chunks": chunks, "launches": launches,
+           "seconds": secs, "chunks": chunks, "launches": by_kernel,
            "launches_per_chunk": levels, "peak_bytes": peak,
            "render_subchunks": cfg.render_subchunks,
            "gpu_vs_cpu_max_abs_err": errs}
@@ -452,64 +620,235 @@ def train_batch(views, cfg, n, seed):
     return batch
 
 
-def train_phase(torch, gather, scatter, step, state_lib, model, cfg,
-                batch):
-    """The training slice: 5 timed steps of configs.waymo() at full width."""
+def reset_launches(gather, scatter):
+    gather.take_cm.launches = 0
+    scatter.scatter_add_cm.launches = 0
+    scatter.scatter_add_dense_cm.launches = 0
+    scatter.scatter_add_packed_cm.launches = 0
+    scatter.scatter_add_chunked_cm.launches = 0
+
+
+def read_launches(gather, scatter):
+    return {"K1": scatter.scatter_add_cm.launches,
+            "K2": scatter.scatter_add_dense_cm.launches,
+            "K3": scatter.scatter_add_packed_cm.launches,
+            "K4": gather.take_cm.launches,
+            "K5": scatter.scatter_add_chunked_cm.launches}
+
+
+def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
+                steps, label):
+    """A training slice at full width: one warm-up and `steps` timed steps
+    of `cfg` on `model`.  The hashed levels' table gradient goes through K3
+    when the config asks for the bf16 backward, else through K1.  Returns
+    the results and the table gradients of the first (warm-up) step."""
+    bf16 = cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
+    check(bf16 == (cfg.prop_mlp.grid_bwd_value_dtype == "bfloat16"),
+          "the two fields disagree on grid_bwd_value_dtype")
     state = state_lib.create_train_state(cfg, model)
     train_step = step.make_train_step(model, cfg)
     gen = torch.Generator(device="cuda").manual_seed(5)
     state, _ = train_step(state, batch, 0.5, generator=gen)  # warm-up
     torch.cuda.synchronize()
+    # Kept on the host, so that the step's peak memory is the step's own.
+    first_grads = {n: p.grad.detach().cpu()
+                   for n, p in model.named_parameters()
+                   if n.endswith(".table")}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     torch.cuda.reset_peak_memory_stats()
-    gather.take_cm.launches = 0
-    scatter.scatter_add_cm.launches = 0
-    scatter.scatter_add_dense_cm.launches = 0
+    reset_launches(gather, scatter)
     secs, totals, terms = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, stats = train_step(state, batch, 0.5, generator=gen)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         totals.append(float(stats["loss"]))
         terms.append({k: float(v) for k, v in stats["losses"].items()})
-    launches = {"K1": scatter.scatter_add_cm.launches,
-                "K2": scatter.scatter_add_dense_cm.launches,
-                "K4": gather.take_cm.launches}
+    launches = read_launches(gather, scatter)
     peak = torch.cuda.max_memory_allocated()
 
     for i, (total, t) in enumerate(zip(totals, terms)):
         check(np.isfinite(total) and all(np.isfinite(v) for v in t.values()),
-              f"step {i + 1}: non-finite loss {total} {t}")
+              f"{label} step {i + 1}: non-finite loss {total} {t}")
     check(totals[-1] < totals[0],
-          f"loss did not fall: step 1 {totals[0]}, step {TRAIN_STEPS} "
+          f"{label}: loss did not fall: step 1 {totals[0]}, step {steps} "
           f"{totals[-1]}")
     unchanged = [n for n, p in model.named_parameters()
                  if torch.equal(before[n], p.detach())]
-    check(not unchanged, f"parameters not updated: {unchanged}")
+    check(not unchanged, f"{label}: parameters not updated: {unchanged}")
     no_grad = [n for n, p in model.named_parameters()
                if n.endswith(".table") and not bool(p.grad.abs().max() > 0)]
-    check(not no_grad, f"tables with a zero gradient: {no_grad}")
-    per_step = {"K1": 2 * cfg.microbatches, "K2": 2 * cfg.microbatches,
-                "K4": 16 * cfg.microbatches}
+    check(not no_grad, f"{label}: tables with a zero gradient: {no_grad}")
+    hashed = 2 * cfg.microbatches
+    per_step = {"K1": 0 if bf16 else hashed, "K2": 2 * cfg.microbatches,
+                "K3": hashed if bf16 else 0, "K4": 16 * cfg.microbatches,
+                "K5": 0}
     for k, n in per_step.items():
-        check(launches[k] == n * TRAIN_STEPS,
-              f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
+        check(launches[k] == n * steps,
+              f"{label}: {k} launched {launches[k]} times in {steps} steps, "
               f"expected {n} per step")
     med = float(np.median(secs))
-    print(f"[train] waymo {TRAIN_RAYS} rays x {TRAIN_STEPS} steps "
+    print(f"[train {label}] waymo {TRAIN_RAYS} rays x {steps} steps "
           f"({cfg.microbatches} microbatches): step s "
           f"{[round(x, 4) for x in secs]}, train rays/s "
-          f"{TRAIN_RAYS / med:.1f}, peak {peak / 2**30:.2f} GiB, loss "
-          f"{[round(x, 5) for x in totals]}, launches {launches}",
+          f"{TRAIN_RAYS / med:.1f}, peak {peak} B ({peak / 2**30:.2f} GiB), "
+          f"loss {[round(x, 5) for x in totals]}, launches {launches}",
           flush=True)
-    print(f"[train] loss terms step 1 {terms[0]}, step {TRAIN_STEPS} "
+    print(f"[train {label}] loss terms step 1 {terms[0]}, step {steps} "
           f"{terms[-1]}", flush=True)
-    return {"rays_per_s": TRAIN_RAYS / med, "step_seconds": secs,
-            "peak_bytes": peak, "totals": totals, "terms": terms,
-            "launches": launches, "launches_per_step": per_step,
-            "microbatches": cfg.microbatches}
+    res = {"rays_per_s": TRAIN_RAYS / med, "step_seconds": secs,
+           "peak_bytes": peak, "totals": totals, "terms": terms,
+           "launches": launches, "launches_per_step": per_step,
+           "microbatches": cfg.microbatches}
+    return res, first_grads
+
+
+def with_bf16_backward(cfg):
+    """cfg with grid_bwd_value_dtype='bfloat16' on both fields (what the
+    CLI's two -b bindings set)."""
+    return dataclasses.replace(
+        cfg,
+        nerf_mlp=dataclasses.replace(cfg.nerf_mlp,
+                                     grid_bwd_value_dtype="bfloat16"),
+        prop_mlp=dataclasses.replace(cfg.prop_mlp,
+                                     grid_bwd_value_dtype="bfloat16"))
+
+
+def compare_first_grads(f32_grads, bf16_grads, hashed_from):
+    """The bf16 backward's first-step table gradients against the f32
+    backward's, from the same initial state and the same draws: over the
+    whole table, and over the hashed levels alone (rows from
+    hashed_from[name] on), which are the ones K3 fills."""
+    rel = {}
+    for name, want in f32_grads.items():
+        got = bf16_grads[name]
+        lo = hashed_from[name]
+        rel[name] = {
+            "table": float((got - want).norm() / want.norm()),
+            "hashed_levels": float((got[:, lo:] - want[:, lo:]).norm()
+                                   / want[:, lo:].norm())}
+        # K2 fills the dense levels either way.
+        dense_equal = bool((got[:, :lo] == want[:, :lo]).all())
+        for part, v in rel[name].items():
+            check(v <= BF16_GRAD_REL_L2,
+                  f"bf16 backward: {name} {part} gradient rel L2 {v} from "
+                  f"the f32 backward's (limit {BF16_GRAD_REL_L2})")
+        check(rel[name]["hashed_levels"] > 0,
+              f"bf16 backward: {name} hashed levels bitwise equal to the "
+              f"f32 backward's, so nothing was rounded")
+        rel[name]["dense_levels_bitwise_equal"] = dense_equal
+    print(f"[train bf16] first-step table gradients vs the f32 backward: "
+          f"rel L2 {rel} (limit {BF16_GRAD_REL_L2})", flush=True)
+    return rel
+
+
+def steady_windows(logged, start, render_every):
+    """The logged steps whose window is a steady-state rate: it holds a full
+    CLI_PRINT_EVERY steps, none of them the call's first, and no test render
+    or save (the loop does those after a step's log line, so they fall into
+    the window that follows)."""
+    steady, prev = [], start
+    for s in sorted(logged):
+        events = [e for e in range(max(prev, start + 1), s)
+                  if e % render_every == 0 or e % CLI_CHECKPOINT_EVERY == 0]
+        if s - prev == CLI_PRINT_EVERY and prev > start and not events:
+            steady.append(s)
+        prev = s
+    return steady
+
+
+def cli_phase(torch, gather, scatter, cli_train, batch_size):
+    """The training entry point in-process on the synthetic scene, with the
+    bf16 backward: train, test render, checkpoints, then resume.  Two rates
+    come out: the one the CLI logs, over the steady windows alone
+    (`steady_windows`), and steps x batch_size over the seconds of each
+    whole call, with its set-up, test render and saves."""
+    exp = tempfile.mkdtemp(prefix="ucnerf_cli_")
+    first, second = CLI_STEPS
+    argv = ["--preset", "synthetic_quality",
+            "-b", 'NerfMLP.grid_bwd_value_dtype = "bfloat16"',
+            "-b", 'PropMLP.grid_bwd_value_dtype = "bfloat16"',
+            "-b", f"Config.exp_name = {exp!r}",
+            "-b", f"Config.print_every = {CLI_PRINT_EVERY}",
+            "-b", f"Config.train_render_every = {first}",
+            "-b", f"Config.checkpoint_every = {CLI_CHECKPOINT_EVERY}",
+            "-b", "Config.lr_delay_steps = 0"]
+    log_path = os.path.join(exp, "log_train.txt")
+    microbatches, levels = 2, 16  # of the preset; 6 proposal + 10 NeRF levels
+    try:
+        results = []
+        offset = 0
+        for max_steps, start in ((first, 0), (second, first)):
+            reset_launches(gather, scatter)
+            t0 = time.perf_counter()
+            cli_train.main(argv + ["--max-steps", str(max_steps)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches(gather, scatter)
+            with open(log_path) as f:
+                f.seek(offset)
+                log = f.read()
+                offset = f.tell()
+            steps = max_steps - start
+            lines = {int(a): (float(b), float(c), float(d)) for a, b, c, d in
+                     re.findall(r"step (\d+)/\d+: loss=(\S+) psnr=(\S+) "
+                                r"(\d+) rays/s", log)}
+            check(max(lines) == max_steps and min(lines) == start + 1,
+                  f"CLI logged steps {sorted(lines)}, expected {start + 1} "
+                  f"to {max_steps}")
+            check(all(np.isfinite(v).all() for v in lines.values()),
+                  f"CLI: non-finite log values {lines}")
+            check(("resumed from step %d" % start in log) == bool(start),
+                  f"CLI: resume line wrong for a start at step {start}")
+            kept = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+            # checkpoints_total_limit is 1 in the preset: only the final
+            # save is left, the one at step 20 was pruned.
+            check(kept == [str(max_steps)],
+                  f"CLI: checkpoints {kept}, expected [{max_steps}]")
+            check(launches["K3"] == steps * microbatches * 2
+                  and launches["K2"] == steps * microbatches * 2
+                  and launches["K1"] == 0,
+                  f"CLI: launches {launches} in {steps} steps of "
+                  f"{microbatches} microbatches")
+            steady = {k: lines[k][2]
+                      for k in steady_windows(lines, start, first)}
+            results.append({"max_steps": max_steps, "seconds": secs,
+                            "launches": launches, "log": lines,
+                            "steady_window_rays_per_s": steady,
+                            "call_rays_per_s": steps * batch_size / secs})
+            print(f"[cli] --max-steps {max_steps} from step {start}: "
+                  f"{secs:.1f} s, {steps * batch_size / secs:.1f} rays/s "
+                  f"over the whole call (set-up, render and saves "
+                  f"included), launches {launches}, logged rays/s of the "
+                  f"steady windows (ending at these steps) {steady}, of "
+                  f"every window (first steps, render and saves included) "
+                  f"{ {k: v[2] for k, v in lines.items()} }, loss "
+                  f"{ {k: v[0] for k, v in lines.items()} }, checkpoints "
+                  f"{kept}", flush=True)
+            if not start:
+                check(lines[max_steps][0] < lines[1][0],
+                      f"CLI: loss {lines[max_steps][0]} at step {max_steps} "
+                      f"not below {lines[1][0]} at step 1")
+                render = re.search(r"test render \d+: psnr=(\S+) "
+                                   r"ssim=(\S+) \((\S+)s\)", log)
+                check(render is not None
+                      and np.isfinite(float(render.group(1))),
+                      "CLI: no test render with a finite PSNR in the log")
+                chunks = (launches["K4"] - steps * microbatches * levels)
+                check(chunks > 0 and chunks % levels == 0,
+                      f"CLI: K4 launched {launches['K4']} times; the test "
+                      f"render's share {chunks} is no multiple of {levels}")
+                results[-1].update(test_psnr=float(render.group(1)),
+                                   test_ssim=float(render.group(2)),
+                                   render_seconds=float(render.group(3)))
+                print(f"[cli] test render psnr {render.group(1)} ssim "
+                      f"{render.group(2)} in {render.group(3)} s "
+                      f"({chunks // levels} chunks)", flush=True)
+        return results
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
 
 
 def grad_check_phase(torch, losses_lib, model, cfg, batch):
@@ -587,8 +926,10 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
         train_step(state, batch, 0.5, generator=gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    bf16 = cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
     write_profile(torch, prof, wall_us, path,
-                  f"one training step of {batch['origins'].shape[0]} rays",
+                  f"one training step of {batch['origins'].shape[0]} rays"
+                  + (" (bf16 backward)" if bf16 else ""),
                   ("rows_kernel", "long_rows_kernel", "RadixSort",
                    "searchsorted", "take_cm_kernel"))
 
@@ -643,13 +984,16 @@ def main(argv=None):
     parser.add_argument("--profile", help="also profile one render chunk "
                         "and write its kernel table here")
     parser.add_argument("--profile-train", help="also profile one training "
-                        "step and write its kernel table here")
+                        "step with each backward and write the kernel tables "
+                        "here (f32) and beside it with '.bf16' before the "
+                        "extension")
     args = parser.parse_args(argv)
 
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
     sys.path.insert(0, ROOT)
     from ucnerf_tpu_torch import configs
+    from ucnerf_tpu_torch.cli import train as cli_train
     from ucnerf_tpu_torch.data import cameras
     from ucnerf_tpu_torch.ops import build, gather, hashgrid, scatter
     from ucnerf_tpu_torch.train import losses as losses_lib
@@ -668,9 +1012,9 @@ def main(argv=None):
           flush=True)
 
     k4 = kernel_phase(torch, gather)
-    k1, k2 = scatter_phase(torch, scatter, hashgrid, configs)
+    k1, k2, k3, k5 = scatter_phase(torch, scatter, hashgrid, configs)
     slice_res, eval_step, views, cfg, model = slice_phase(
-        torch, gather, configs, cameras, step)
+        torch, gather, scatter, configs, cameras, step)
     if args.profile:
         profile_chunk(torch, eval_step, views[0], cfg, args.profile)
     del eval_step
@@ -678,28 +1022,68 @@ def main(argv=None):
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              train_batch(views, train_cfg, TRAIN_RAYS, seed=4).items()}
     grad_res = grad_check_phase(torch, losses_lib, model, train_cfg, batch)
-    train_res = train_phase(torch, gather, scatter, step, state_lib, model,
-                            train_cfg, batch)
-    print(f"[train] peak memory {train_res['peak_bytes']} B "
-          f"({train_res['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+    initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    train_res, f32_grads = train_phase(
+        torch, gather, scatter, step, state_lib, model, train_cfg, batch,
+        TRAIN_STEPS, "f32")
     if args.profile_train:
         profile_train_step(torch, model, train_cfg, batch, step, state_lib,
                            args.profile_train)
+    del model
 
-    k4["launches_render"] = slice_res["launches"]
+    # The same model from the same initial state, with the bf16 backward.
+    bf16_cfg = with_bf16_backward(train_cfg)
+    bf16_model = step.init_model(bf16_cfg, seed=0, device="cuda")
+    bf16_model.load_state_dict(initial, strict=True)
+    del initial
+    bf16_res, bf16_grads = train_phase(
+        torch, gather, scatter, step, state_lib, bf16_model, bf16_cfg, batch,
+        BF16_STEPS, "bf16")
+    hashed_from = {
+        f"{name}.table": m.grid_spec.offsets[m.grid_spec.dense_prefix]
+        for name, m in bf16_model.named_modules() if hasattr(m, "grid_spec")}
+    bf16_res["first_step_table_grad_rel_l2"] = compare_first_grads(
+        f32_grads, bf16_grads, hashed_from)
+    del f32_grads, bf16_grads
+    if args.profile_train:
+        root, ext = os.path.splitext(args.profile_train)
+        profile_train_step(torch, bf16_model, bf16_cfg, batch, step,
+                           state_lib, f"{root}.bf16{ext}")
+    del bf16_model, batch
+    torch.cuda.empty_cache()
+
+    cli_res = cli_phase(torch, gather, scatter, cli_train,
+                        configs.synthetic_quality().batch_size)
+    check(cli_res[0]["steady_window_rays_per_s"],
+          "CLI: no steady log window in the first call")
+
+    # Launches of each main path, counted from 0 just before it.
+    paths = {"render": slice_res["launches"],
+             "train_f32": train_res["launches"],
+             "train_bf16": bf16_res["launches"],
+             "cli_train": cli_res[0]["launches"],
+             "cli_resume": cli_res[1]["launches"]}
+    for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2"), (k3, "K3"),
+                       (k5, "K5")):
+        entry["launches_by_path"] = {p: n[key] for p, n in paths.items()
+                                     if n.get(key)}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        # K5 has no caller on any path in either package: the kernel phase
+        # holds it, and a launch counted on a path would be a mistake.
+        check((entry["launches"] > 0) == (key != "K5"),
+              f"{key} was launched {entry['launches']} times on the main "
+              f"paths: {entry['launches_by_path']}")
     k4["launches_per_chunk"] = slice_res["launches_per_chunk"]
-    k4["launches_train"] = train_res["launches"]["K4"]
-    k4["launches_per_step"] = train_res["launches_per_step"]["K4"]
-    k4["launches"] = k4["launches_render"] + k4["launches_train"]
-    for entry, key in ((k1, "K1"), (k2, "K2")):
-        entry["launches"] = train_res["launches"][key]
+    for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2")):
         entry["launches_per_step"] = train_res["launches_per_step"][key]
+    k3["launches_per_step"] = bf16_res["launches_per_step"]["K3"]
 
-    kernels = {"kernels": [k4, k1, k2]}
+    kernels = {"kernels": [k4, k1, k2, k3, k5]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "render": slice_res, "train": train_res,
+                       "train_bf16": bf16_res, "cli": cli_res,
                        "grad_check": grad_res}, f, indent=1)
     print(card)
     print(json.dumps(kernels))

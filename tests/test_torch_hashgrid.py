@@ -156,12 +156,20 @@ def test_init_table_and_table_grad_raises():
     assert table.abs().max() <= spec.init_std
     table.requires_grad_()
     x01 = torch.rand((3, 6, 16), generator=gen)
-    # The table gradient runs K1/K2; the bf16-packed one (K3) is not ported.
-    with pytest.raises(NotImplementedError):
+    # The table gradient runs K1/K2, or K3 for the bf16-packed backward;
+    # any other value of the knob raises.
+    with pytest.raises(ValueError):
         thash.encode_hex_cm(x01, None, table, spec,
-                            bwd_value_dtype="bfloat16")
+                            bwd_value_dtype="float16")
     thash.encode_hex_cm(x01, None, table, spec)[0].sum().backward()
     assert table.grad.shape == table.shape and table.grad.abs().max() > 0
+    f32_grad, table.grad = table.grad, None
+    thash.encode_hex_cm(x01, None, table, spec,
+                        bwd_value_dtype="bfloat16")[0].sum().backward()
+    # One bf16 rounding per update: 2^-9 relative at most per term.
+    assert not torch.equal(table.grad, f32_grad)
+    assert (table.grad - f32_grad).abs().max() <= (
+        2.0**-8 * f32_grad.abs().max())
     with torch.no_grad():  # the render path ignores the backward knobs
         thash.encode_hex_cm(x01, None, table, spec,
                             bwd_value_dtype="bfloat16")

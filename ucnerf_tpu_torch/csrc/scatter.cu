@@ -5,18 +5,22 @@
 //                      g[c, s] for every sample s of dense level l and every
 //                      corner k in 0..7, off_l(k) = bit0(k) + bit1(k) * S_l +
 //                      bit2(k) * S_l^2 (S_l the level's corner stride).
+// K3 (packed_sum_cm)   K1's sum over updates that were rounded once to bf16
+//                      and arrive as pairs in 32-bit words, C / 2 planes:
+//                      channel c in the high half of plane c, channel c + C/2
+//                      in the low half.
 //
 // They replace the TPU Pallas kernels ucnerf_tpu/ops/scatter.py::
-// scatter_add_cm (K1, pallas_call at scatter.py:221) and
-// scatter_add_dense_cm (K2, pallas_call at scatter.py:724).  Those carry each
-// output tile's sum in VMEM over a sequential grid and contract a factored
-// one-hot on the MXU.  Hopper runs blocks in parallel in no order, so both
-// kernels here are GATHER-form reductions with no float atomics: the caller
-// sorts the keys with a stable sort (torch.sort, as the JAX package sorts with
-// lax.sort outside its kernel) and finds each key's run [starts[k],
-// starts[k+1]) with searchsorted; every output row is then owned by exactly
-// one thread group, which sums its run(s) in a fixed order and writes the row,
-// 0 where no update lands.  The result is bitwise the same on every launch.
+// scatter_add_cm (K1, pallas_call at scatter.py:221), scatter_add_dense_cm
+// (K2, pallas_call at scatter.py:724) and scatter_add_packed_cm (K3,
+// pallas_call at scatter.py:473).  Those carry each output tile's sum in VMEM
+// over a sequential grid and contract a factored one-hot on the MXU (K3 as a
+// single bf16 matmul, its values being bf16 already).  Hopper runs blocks in
+// parallel in no order, so the kernels here are GATHER-form reductions with
+// no float atomics (scatter_common.cuh): the caller sorts the keys with a
+// stable sort (torch.sort, as the JAX package sorts with lax.sort outside its
+// kernel) and finds each key's run [starts[k], starts[k+1]) with
+// searchsorted; every output row is then owned by exactly one thread group.
 //
 //   K1: the group of row r walks the run of key r.
 //   K2: the group of row r (dense level l) walks the 8 runs of keys
@@ -24,21 +28,16 @@
 //       sample's corner weight from its fractional coords rounded to bf16
 //       (round-to-nearest-even, as scatter.py:619-622 does).  So no 8-fold
 //       expansion of the samples is ever stored.
-//
-// Order inside a group: lane j of a G-lane group sums positions j, j+G, ...
-// of each run in turn, then the G lanes combine with a fixed xor-shuffle tree.
-// Rows whose walk is longer than kLong elements (a coarse level's skew: one
-// cell can take 1e5 samples) are not walked by a 4-lane group: the group
-// appends the row to a list (integer atomic; the list's order does not
-// matter), and a second kernel gives each listed row a whole 256-thread block
-// with a fixed block-tree reduction.  Each row's sum is the same whichever
-// block takes it.
+//   K3: K1's walk in K1's order; each update is C / 2 word loads instead of C,
+//       widened to f32 in registers and summed in f32.  No f32 [C, M] copy of
+//       the updates is ever made.
 //
 // Bound (bytes, at 3.35 TB/s): per update the permutation entry (8 B) and the
-// C value words (K1: 16 B at C = 4), or per sample the permutation entry,
-// 3 frac words and C grad words (K2: 28 B); per row the run start (4 B) and
-// the C output words (16 B).  The random value reads are served at sector
-// granularity, so the kernels sit above that bound.
+// C value words (K1: 16 B at C = 4; K3: 8 B), or per sample the permutation
+// entry, 3 frac words and C grad words (K2: 28 B); per row the run start (4 B)
+// and the C output words (16 B).  The random value reads are served at sector
+// granularity, so the kernels sit above that bound; K3 reads half the sectors
+// of K1.
 //
 // Offsets are 64-bit: C * M reaches 1.1e8 at the canonical microbatch.
 
@@ -47,24 +46,22 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "scatter_common.cuh"
+
 namespace {
 
-constexpr int kGroup = 4;     // lanes per output row in the first pass
-constexpr int kUnroll = 4;    // loads in flight per lane
-constexpr int kLong = 256;    // longer walks go to the block-per-row pass
-constexpr int kThreads = 256;
+using namespace ucnerf;
+
 constexpr int kMaxLevels = 8;
+// What a row's group walks: the run of its own key over f32 planes (K1), the
+// 8 corner runs of a dense level (K2), or its own run over bf16 pairs (K3).
+enum Mode { kSegment = 0, kDense = 1, kPacked = 2 };
 
 struct DenseLevels {
   int n;
   int64_t offset[kMaxLevels + 1];  // row offsets of the dense levels
   int64_t stride[kMaxLevels];      // corner stride of each level
 };
-
-// Read-only 64-bit load (__ldg is declared for long long, not int64_t).
-__device__ __forceinline__ int64_t load_col(const int64_t* p) {
-  return static_cast<int64_t>(__ldg(reinterpret_cast<const long long*>(p)));
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -79,41 +76,6 @@ __device__ __forceinline__ int dense_level(const DenseLevels& lv, int64_t r) {
 
 __device__ __forceinline__ int64_t corner_offset(int k, int64_t s) {
   return (k & 1) + ((k >> 1) & 1) * s + ((k >> 2) & 1) * s * s;
-}
-
-// ---- K1 ---------------------------------------------------------------
-
-// Adds values[:, perm[p]] for p = lo + first, lo + first + step, ... < hi.
-template <int C>
-__device__ __forceinline__ void sum_run(const float* __restrict__ values,
-                                        int64_t ldv,
-                                        const int64_t* __restrict__ perm,
-                                        int64_t lo, int64_t hi, int first,
-                                        int step, float (&acc)[C]) {
-  for (int64_t p = lo + first; p < hi; p += static_cast<int64_t>(step) *
-                                             kUnroll) {
-    int64_t col[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t q = p + static_cast<int64_t>(u) * step;
-      col[u] = q < hi ? load_col(perm + q) : -1;
-    }
-    float v[kUnroll][C];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        v[u][c] = col[u] >= 0 ? __ldg(values + c * ldv + col[u]) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (col[u] >= 0) acc[c] += v[u][c];
-      }
-    }
-  }
 }
 
 // ---- K2 ---------------------------------------------------------------
@@ -177,58 +139,10 @@ __device__ __forceinline__ int64_t dense_walk(const DenseLevels& lv,
   return n;
 }
 
-// ---- shared reductions --------------------------------------------------
-
-template <int C>
-__device__ __forceinline__ void group_reduce(float (&acc)[C]) {
-#pragma unroll
-  for (int off = kGroup / 2; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off, kGroup);
-    }
-  }
-}
-
-// Fixed block tree: xor-shuffle in each warp, then warp sums in warp order.
-// Returns the total in thread 0.  `red` holds kThreads / 32 * C floats.
-template <int C>
-__device__ __forceinline__ void block_reduce(float (&acc)[C], float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-    }
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) red[warp * C + c] = acc[c];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float s = red[c];
-      for (int w = 1; w < kThreads / 32; ++w) s += red[w * C + c];
-      acc[c] = s;
-    }
-  }
-  __syncthreads();
-}
-
-template <int C>
-__device__ __forceinline__ void store_row(const float (&acc)[C], float* out,
-                                          int64_t ldo, int64_t r) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) out[c * ldo + r] = acc[c];
-}
-
 // ---- kernels ------------------------------------------------------------
 
 // First pass: a kGroup-lane group per row.  Rows with long walks are listed.
-template <int C, bool kDense>
+template <int C, Mode kMode>
 __global__ void __launch_bounds__(kThreads) rows_kernel(
     const float* __restrict__ values, int64_t ldv,
     const float* __restrict__ fr, int64_t ldf,
@@ -246,7 +160,7 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(
 
   bool is_long = false;
   if (valid) {
-    if (kDense) {
+    if (kMode == kDense) {
       is_long = dense_walk(lv, starts, r) > kLong;
       if (!is_long) {
         const int l = dense_level(lv, r);
@@ -262,7 +176,10 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(
       const int64_t lo = __ldg(starts + r);
       const int64_t hi = __ldg(starts + r + 1);
       is_long = hi - lo > kLong;
-      if (!is_long) sum_run<C>(values, ldv, perm, lo, hi, sub, kGroup, acc);
+      if (!is_long) {
+        sum_run<C, kMode == kPacked>(values, ldv, perm, lo, hi, sub, kGroup,
+                                     acc);
+      }
     }
   }
   group_reduce<C>(acc);  // every lane of the warp takes part
@@ -276,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(
 }
 
 // Second pass: a block per listed row, blocks striding over the list.
-template <int C, bool kDense>
+template <int C, Mode kMode>
 __global__ void __launch_bounds__(kThreads) long_rows_kernel(
     const float* __restrict__ values, int64_t ldv,
     const float* __restrict__ fr, int64_t ldf,
@@ -291,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) long_rows_kernel(
     float acc[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-    if (kDense) {
+    if (kMode == kDense) {
       const int l = dense_level(lv, r);
 #pragma unroll 1
       for (int k = 0; k < 8; ++k) {
@@ -302,42 +219,46 @@ __global__ void __launch_bounds__(kThreads) long_rows_kernel(
                          acc);
       }
     } else {
-      sum_run<C>(values, ldv, perm, __ldg(starts + r), __ldg(starts + r + 1),
-                 threadIdx.x, kThreads, acc);
+      sum_run<C, kMode == kPacked>(values, ldv, perm, __ldg(starts + r),
+                                   __ldg(starts + r + 1), threadIdx.x,
+                                   kThreads, acc);
     }
     block_reduce<C>(acc, red);
     if (threadIdx.x == 0) store_row<C>(acc, out, ldo, r);
   }
 }
 
-template <int C, bool kDense>
+template <int C, Mode kMode>
 int launch(const float* values, int64_t ldv, const float* fr, int64_t ldf,
            const int64_t* perm, const int32_t* starts, const DenseLevels& lv,
            int64_t rows, float* out, int64_t ldo, int32_t* long_rows,
            int32_t* long_count, cudaStream_t stream) {
   const int64_t threads = rows * kGroup;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  rows_kernel<C, kDense><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           stream>>>(values, ldv, fr, ldf, perm, starts, lv,
-                                     rows, out, ldo, long_rows, long_count);
+  rows_kernel<C, kMode><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          stream>>>(values, ldv, fr, ldf, perm, starts, lv,
+                                    rows, out, ldo, long_rows, long_count);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 132 SMs, a few blocks each; idle blocks exit after reading the count.
-  long_rows_kernel<C, kDense><<<132 * 4, kThreads, 0, stream>>>(
+  long_rows_kernel<C, kMode><<<kLongBlocks, kThreads, 0, stream>>>(
       values, ldv, fr, ldf, perm, starts, lv, out, ldo, long_rows,
       long_count);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDense>
+template <Mode kMode>
 int dispatch(int channels, const float* values, int64_t ldv, const float* fr,
              int64_t ldf, const int64_t* perm, const int32_t* starts,
              const DenseLevels& lv, int64_t rows, float* out, int64_t ldo,
              int32_t* long_rows, int32_t* long_count, cudaStream_t stream) {
 #define UCNERF_CASE(C)                                                      \
   case C:                                                                   \
-    return launch<C, kDense>(values, ldv, fr, ldf, perm, starts, lv, rows,  \
-                             out, ldo, long_rows, long_count, stream);
+    return launch<C, kMode>(values, ldv, fr, ldf, perm, starts, lv, rows,   \
+                            out, ldo, long_rows, long_count, stream);
+  // Bf16 pairs need an even channel count.
+  if (kMode == kPacked && channels % 2 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (channels) {
     UCNERF_CASE(1)
     UCNERF_CASE(2)
@@ -365,7 +286,7 @@ extern "C" int ucnerf_segment_sum_cm(const void* values, long long ldv,
                                      void* long_count, void* stream) {
   if (rows <= 0) return 0;
   DenseLevels lv{};
-  return dispatch<false>(
+  return dispatch<kSegment>(
       channels, static_cast<const float*>(values), ldv, nullptr, 0,
       static_cast<const int64_t*>(perm), static_cast<const int32_t*>(starts),
       lv, rows, static_cast<float*>(out), ldo,
@@ -400,10 +321,28 @@ extern "C" int ucnerf_dense_sum_cm(const void* g, long long ldg,
     lv.stride[l] = strides[l];
   }
   lv.offset[nlevels] = level_offsets[nlevels];
-  return dispatch<true>(
+  return dispatch<kDense>(
       channels, static_cast<const float*>(g), ldg,
       static_cast<const float*>(fr), ldf, static_cast<const int64_t*>(perm),
       static_cast<const int32_t*>(starts), lv, rows, static_cast<float*>(out),
       ldo, static_cast<int32_t*>(long_rows),
       static_cast<int32_t*>(long_count), static_cast<cudaStream_t>(stream));
+}
+
+// K3.  packed: channels / 2 planes of M 32-bit words (bf16 pairs, see above),
+// plane c at packed + c * ldp words.  channels (even) counts the f32 output
+// planes.  Other arguments as for K1.
+extern "C" int ucnerf_packed_sum_cm(const void* packed, long long ldp,
+                                    const void* perm, const void* starts,
+                                    long long rows, void* out, long long ldo,
+                                    int channels, void* long_rows,
+                                    void* long_count, void* stream) {
+  if (rows <= 0) return 0;
+  DenseLevels lv{};
+  return dispatch<kPacked>(
+      channels, static_cast<const float*>(packed), ldp, nullptr, 0,
+      static_cast<const int64_t*>(perm), static_cast<const int32_t*>(starts),
+      lv, rows, static_cast<float*>(out), ldo,
+      static_cast<int32_t*>(long_rows), static_cast<int32_t*>(long_count),
+      static_cast<cudaStream_t>(stream));
 }

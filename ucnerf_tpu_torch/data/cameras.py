@@ -174,3 +174,19 @@ def pose_image_batch(pixtocam, camtoworld, width, height, near, far):
         "far": scal(far),
         "cam_idx": np.zeros((height, width), np.int32),
     }
+
+
+def quat_xyzw_to_rotmat(q):
+    """Quaternion [x, y, z, w] -> 3x3 rotation matrix (scipy convention,
+    used to parse pose.json)."""
+    x, y, z, w = q
+    n = x * x + y * y + z * z + w * w
+    s = 0.0 if n == 0 else 2.0 / n
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return np.array([
+        [1 - (yy + zz), xy - wz, xz + wy],
+        [xy + wz, 1 - (xx + zz), yz - wx],
+        [xz - wy, yz + wx, 1 - (xx + yy)],
+    ])

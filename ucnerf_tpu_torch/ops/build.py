@@ -2,7 +2,8 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, bound with ctypes.  Libraries go into ``ucnerf_tpu_torch/_build/``
-(git-ignored) at first use and are rebuilt when their source is newer.
+(git-ignored) at first use and are rebuilt when their source, or a header it
+includes (``HEADERS``), is newer.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -20,7 +21,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather", "scatter")
+SOURCES = ("gather", "scatter", "scatter_chunked")
+# The headers of csrc/ that each source includes.
+HEADERS = {"scatter": ("scatter_common.cuh",),
+           "scatter_chunked": ("scatter_common.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,8 +50,11 @@ def _lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < (CSRC / src).stat().st_mtime
+               for src in (f"{name}.cu", *HEADERS.get(name, ())))
 
 
 def build(names=SOURCES, verbose: bool = False) -> float:

@@ -11,9 +11,10 @@ When the table requires grad, the gathers and corner sums run inside
 ``_GatherWSum``, the counterpart of the JAX ``_gather_wsum_ml`` custom VJP:
 its backward fills the table gradient with the scatter kernels, K2
 (``scatter.scatter_add_dense_cm``) for the dense-prefix levels when
-``bwd_dense_sample`` is on and K1 (``scatter.scatter_add_cm``) for the other
-levels.  ``tv_loss`` and ``level_sq_means`` have no caller on the ported
-paths and are not ported.
+``bwd_dense_sample`` is on and, for the other levels, K1
+(``scatter.scatter_add_cm``) or, with ``bwd_value_dtype='bfloat16'``, K3
+(``scatter.scatter_add_packed_cm``).  ``tv_loss`` and ``level_sq_means``
+have no caller on the ported paths and are not ported.
 """
 
 from __future__ import annotations
@@ -209,16 +210,19 @@ class _GatherWSum(torch.autograd.Function):
 
     Backward: one [C, rows] gradient buffer.  The first ``nd`` (dense) levels
     are filled by K2 from the per-sample feature grads, fractional coords
-    and corner-0 rows; the rest by K1 from the corner-expanded ``w * g``.
-    Each kernel writes every row of its range, so the buffer needs no
-    zeroing, and the TPU's tile-offset assembly (hashgrid.py:292-319) has no
+    and corner-0 rows; the rest from the corner-expanded ``w * g``, by K1 in
+    f32 or, with ``value_dtype='bfloat16'``, by K3 after one bf16 rounding
+    of each update.  Each kernel writes every row of its range, so the
+    buffer needs no zeroing, and neither the TPU's tile-offset assembly
+    (hashgrid.py:292-319) nor its concatenation of parts (:320-343) has a
     counterpart.
     """
 
     @staticmethod
-    def forward(ctx, table, idx, w, frac, spec, nd, bf16):
+    def forward(ctx, table, idx, w, frac, spec, nd, bf16, value_dtype):
         """table [C, rows]; idx, w [L, 8, N] (level-local rows); frac
-        [nd, 3, N].  Returns the per-level corner sums [L, C, N]."""
+        [nd, 3, N]; value_dtype None or 'bfloat16'.  Returns the per-level
+        corner sums [L, C, N]."""
         keep_rows = ctx.needs_input_grad[2]
         t = table.detach()
         outs, rows_kept = [], []
@@ -230,7 +234,7 @@ class _GatherWSum(torch.autograd.Function):
                 rows_kept.append(rows)
             del rows
         ctx.save_for_backward(idx, w, frac, *rows_kept)
-        ctx.spec, ctx.nd = spec, nd
+        ctx.spec, ctx.nd, ctx.value_dtype = spec, nd, value_dtype
         return torch.stack(outs)
 
     @staticmethod
@@ -256,7 +260,10 @@ class _GatherWSum(torch.autograd.Function):
             if nd < num_levels:
                 # Level-major, corner, sample: hashgrid.py:302-304.
                 vals = (w[nd:, None] * g[nd:, :, None]).transpose(0, 1)
-                scatter.scatter_add_cm(
+                hashed = (scatter.scatter_add_packed_cm
+                          if ctx.value_dtype == "bfloat16"
+                          else scatter.scatter_add_cm)
+                hashed(
                     vals.reshape(c, -1),
                     torch.cat([(idx[l] + (offsets[l] - dense_rows))
                                .reshape(-1) for l in range(nd, num_levels)]),
@@ -265,7 +272,7 @@ class _GatherWSum(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             d_w = torch.stack([torch.einsum("chs,cs->hs", rows[l], g[l])
                                for l in range(num_levels)])
-        return d_table, None, d_w, None, None, None, None
+        return d_table, None, d_w, None, None, None, None, None
 
 
 def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
@@ -297,8 +304,10 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
       bwd_dense_sample: fill the dense-prefix levels' table gradient with
         K2 (``MLPConfig.grid_bwd_dense_sample``); otherwise K1 covers every
         level.
-      bwd_value_dtype: only None: the bf16-packed backward (K3) is not
-        ported, and asking for it with a table gradient raises.
+      bwd_value_dtype: None, or 'bfloat16' to round each hashed-level
+        update once to bf16 and sum it with K3
+        (``MLPConfig.grid_bwd_value_dtype``); it shapes only the backward.
+        Any other value raises ValueError.
 
     Returns:
       feats [L*C, M] and wmeans [L, M] (per-level mean erf weight).
@@ -307,11 +316,13 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
         grid_sizes = np.asarray(spec.resolutions, np.float32)
     c_dim = spec.level_dim
     hex_n, m = x01.shape[1], x01.shape[2]
+    if bwd_value_dtype not in (None, "bfloat16"):
+        raise ValueError(f"bwd_value_dtype must be None or 'bfloat16', got "
+                         f"{bwd_value_dtype!r}")
+    if bwd_value_dtype is not None and c_dim % 2:
+        raise ValueError(f"bwd_value_dtype needs an even level_dim, got "
+                         f"{c_dim}")
     fused = torch.is_grad_enabled() and table.requires_grad
-    if fused and bwd_value_dtype is not None:
-        raise NotImplementedError(
-            "grid_bwd_value_dtype (the bf16-packed scatter, K3) is not "
-            "ported yet")
     nd = spec.dense_prefix if bwd_dense_sample else 0
 
     oob = ((x01 < 0) | (x01 > 1)).any(dim=0)  # [H, M]
@@ -344,7 +355,7 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
                     x01.new_zeros((0, 3, hex_n * m)))
         parts = _GatherWSum.apply(table, torch.stack(idx_parts),
                                   torch.stack(w_parts), frac_lvl, spec, nd,
-                                  gather_bf16)
+                                  gather_bf16, bwd_value_dtype)
         acc_levels = list(parts.reshape(spec.num_levels, c_dim, hex_n, m))
 
     feats = []

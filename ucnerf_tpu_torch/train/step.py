@@ -60,6 +60,19 @@ def dummy_batch(config: Config, n: int) -> Dict[str, np.ndarray]:
     }
 
 
+def batch_to_device(arrays, device) -> Dict[str, torch.Tensor]:
+    """Host ray arrays as tensors on `device`, 64-bit floats and ints
+    narrowed to 32 bits (the data layer casts rays in float64; the JAX
+    package narrows the same way when an array reaches the device)."""
+    narrow = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
+    out = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        v = np.array(v, dtype=narrow.get(v.dtype, v.dtype))  # a writable copy
+        out[k] = torch.from_numpy(v).to(device)
+    return out
+
+
 def make_train_step(model: UCNeRFModel, config: Config):
     """Build the train step.
 
@@ -213,8 +226,7 @@ def render_image(eval_step, batch, config: Config, train_frac=1.0,
     for i0 in range(0, num_rays, chunk):
         part, pad = _pad_rays({k: v[i0:i0 + chunk] for k, v in flat.items()},
                               max(config.render_subchunks, 1))
-        tensors = {k: torch.from_numpy(np.array(v)).to(eval_step.device)
-                   for k, v in part.items()}
+        tensors = batch_to_device(part, eval_step.device)
         rv = tensors.pop("rand_vec", None)
         out = eval_step(tensors, train_frac, eval_camidx, rv)
         out = {k: v.cpu().numpy() for k, v in out.items()}
