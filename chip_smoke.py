@@ -9,16 +9,23 @@ Phases:
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ucnerf_tpu_torch/csrc/, all in parallel;
   3. kernel phase: hold each kernel against its plain PyTorch version at the
-     shapes the main paths give it (K4 at a render chunk's proposal level;
-     K1, K2 and K3 at one training microbatch of each grid, with a skewed
-     row of 1e5 updates; K5, which no path calls, at the NeRF grid's hashed
-     stream in 1 and 24 chunks), check that the scatters are bitwise
-     deterministic, and time kernel, plain version and the nearest single
-     PyTorch call;
+     shapes the main paths give it (K4's two entry points at a render
+     chunk's proposal level: ``take_cm`` bitwise, and the fused
+     ``take_wsum_cm`` within 8 ulp of the summed magnitudes and bitwise
+     ``take_cm`` for one-hot weights; K1, K2 and K3 at one training
+     microbatch of each grid, with a skewed row of 1e5 updates; K5, which no
+     path calls, at the NeRF grid's hashed stream in 1 and 24 chunks and on
+     a small stream of corner cases), check that the scatters are bitwise
+     deterministic, and time kernel, plain version and the nearest PyTorch
+     call;
   4. render phase: render 2 views of 480x320 through ``render_image`` with
      the canonical Waymo model (``configs.waymo()``, full width, random
      weights from a seed), count the kernel launches of that run, check the
      outputs, and match a 64-ray chunk against the same model on the CPU;
+     then the real-index phase: K4's two entry points held and timed on the
+     corner indices and weights that one render chunk hands to a proposal
+     level and to a NeRF level (neighbouring samples share rows there; the
+     kernel phase's uniform stream is the worst case);
   5. gradient check: one 64-ray training microbatch on the card against
      the same model on the CPU (plain versions of every kernel);
   6. training phase: one warm-up and 5 timed steps of
@@ -54,6 +61,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -79,6 +87,10 @@ SCATTER_ATOL_FRAC = 1e-6
 # One row of each scatter input takes this many updates: the skew of a
 # coarse level, where one cell near the cameras holds most first samples.
 SKEW = 100_000
+# The fused gather adds its 8 products in corner order and the plain version
+# in torch's reduction order: two f32 sums of the same 8 terms differ by at
+# most 7 roundings each, held here to 8 ulp (2^-23) of sum_k |w_k * row_k|.
+WSUM_ULPS = 8
 # Training: rays per step, timed steps of the f32 and the bf16 phase.
 TRAIN_RAYS = 15000
 TRAIN_STEPS = 5
@@ -146,8 +158,92 @@ def time_ms(fn, torch, warmup=3, reps=10):
     return float(np.median(times))
 
 
+def wsum_library(torch, table, idx, w):
+    """The torch sequence the fused gather replaces, from library calls:
+    index_select, the product with the weights, the sum over corners."""
+    rows = torch.index_select(table, 1, idx.reshape(-1))
+    return (rows.view(table.shape[0], *idx.shape) * w[None]).sum(dim=1)
+
+
+def check_wsum(torch, gather, table, idx, w, label):
+    """take_wsum_cm against its plain version, with bf16 off and on.
+    Returns the max abs error and the max error in ulp of sum |w * row|."""
+    worst_abs = worst_ulp = 0.0
+    for bf16 in (False, True):
+        got = gather.take_wsum_cm(table, idx, w, bf16=bf16)
+        want = gather.take_wsum_cm_plain(table, idx, w, bf16=bf16)
+        mag = (gather.take_cm_plain(table, idx, bf16=bf16).abs()
+               * w[None].abs()).sum(dim=1)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ulp = float((err / mag.clamp_min(1e-30)).max()) / 2.0**-23
+        check(bool((err <= WSUM_ULPS * 2.0**-23 * mag).all()),
+              f"take_wsum_cm {label} (bf16={bf16}): {ulp:.2f} ulp of "
+              f"sum|w*row| from its plain version (limit {WSUM_ULPS})")
+        worst_abs = max(worst_abs, float(err.max()))
+        worst_ulp = max(worst_ulp, ulp)
+        del got, want, mag, err
+    return worst_abs, worst_ulp
+
+
+def check_one_hot(torch, gather, table, idx, gen, label):
+    """With one weight 1 and seven 0 the fused gather is take_cm, bitwise."""
+    n = idx.shape[1]
+    pick = torch.randint(0, 8, (1, n), generator=gen, device=idx.device)
+    w = torch.zeros(idx.shape, device=idx.device).scatter_(0, pick, 1.0)
+    for bf16 in (False, True):
+        check(torch.equal(
+            gather.take_wsum_cm(table, idx, w, bf16=bf16),
+            gather.take_cm(table, idx.gather(0, pick)[0].contiguous(),
+                           bf16=bf16)),
+            f"take_wsum_cm {label} (bf16={bf16}) with one-hot weights "
+            f"differs from take_cm")
+
+
+def k4_times(torch, gather, table, idx, w):
+    """Times of both entry points on idx [8, N] (take_cm on its M = 8 N
+    indices), of their plain versions and library calls, and the bounds."""
+    c = table.shape[0]
+    flat = idx.reshape(-1)
+    m, n = flat.numel(), idx.shape[1]
+    touched = int(torch.unique(flat[(flat >= 0)
+                                    & (flat < table.shape[1])]).numel())
+    take = {
+        "M": m, "rows": table.shape[1], "rows_touched": touched,
+        "ms": time_ms(lambda: gather.take_cm(table, flat), torch),
+        "interleave_ms": time_ms(lambda: gather.interleave_cm(table), torch),
+        "plain_ms": time_ms(lambda: gather.take_cm_plain(table, flat), torch),
+        "library_ms": time_ms(lambda: torch.index_select(table, 1, flat),
+                              torch),
+        "bound_ms": (4 * m + 4 * c * m + 4 * c * touched)
+        / HBM_BYTES_PER_S * 1e3}
+    wsum = {
+        "N": n, "rows": table.shape[1], "rows_touched": touched,
+        "ms": time_ms(lambda: gather.take_wsum_cm(table, idx, w), torch),
+        "plain_ms": time_ms(lambda: gather.take_wsum_cm_plain(table, idx, w),
+                            torch),
+        "library_ms": time_ms(lambda: wsum_library(torch, table, idx, w),
+                              torch),
+        "bound_ms": (8 * (4 + 4) * n + 4 * c * n + 4 * c * touched)
+        / HBM_BYTES_PER_S * 1e3}
+    return take, wsum
+
+
+def print_k4(label, take, wsum):
+    print(f"[kernel] take_cm {label} M={take['M']} rows={take['rows']} "
+          f"({take['rows_touched']} touched): {take['ms']:.4f} ms (of which "
+          f"interleave {take['interleave_ms']:.4f}; plain "
+          f"{take['plain_ms']:.4f}, index_select {take['library_ms']:.4f}, "
+          f"bound {take['bound_ms']:.4f})", flush=True)
+    print(f"[kernel] take_wsum_cm {label} N={wsum['N']}: {wsum['ms']:.4f} ms "
+          f"(plain {wsum['plain_ms']:.4f}, index_select + multiply + sum "
+          f"{wsum['library_ms']:.4f}, bound {wsum['bound_ms']:.4f})",
+          flush=True)
+
+
 def kernel_phase(torch, gather):
-    """K4 (hash-grid gather) at one proposal level's real shape."""
+    """K4 (hash-grid gather), both entry points, at one proposal level's
+    real shape on a uniform stream."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     table = torch.randn((4, HASHED_ROWS), generator=gen, device=dev)
@@ -175,38 +271,70 @@ def kernel_phase(torch, gather):
             del got, want
     check(bool((gather.take_cm(table, sent)[:, :3] == 0).all()),
           "sentinel indices must give zeros")
+    # A stream whose length and start rule out the 16-byte path.
+    odd = sent[1:PROP_M // 8 - 2]
+    check(torch.equal(gather.take_cm(table, odd.contiguous()),
+                      gather.take_cm_plain(table, odd)),
+          "take_cm on an odd-length stream differs from its plain version")
 
-    # A column slice of a larger table (how the encoder calls it).
+    # The fused entry on the same streams as [8, N] corners of N points,
+    # with weights in [0, 1) as trilinear weights are.
+    idx8, sent8 = idx.view(8, -1), sent.view(8, -1)
+    w = torch.rand(idx8.shape, generator=gen, device=dev)
+    wsum_err, wsum_ulp = check_wsum(torch, gather, table, sent8, w,
+                                    "with sentinels")
+    all_sent = torch.full((8, 4), HASHED_ROWS, dtype=torch.int32, device=dev)
+    check(bool((gather.take_wsum_cm(table, all_sent, w[:, :4].contiguous())
+                == 0).all()),
+          "a point whose corners are all sentinels must give zeros")
+    check_one_hot(torch, gather, table, sent8, gen, "with sentinels")
+    odd8, oddw = sent8[:, :100003].contiguous(), w[:, :100003].contiguous()
+    err, ulp = check_wsum(torch, gather, table, odd8, oddw, "odd length")
+    wsum_err, wsum_ulp = max(wsum_err, err), max(wsum_ulp, ulp)
+
+    # A column slice of a larger table (how the encoder calls both).
     big = torch.randn((4, 3 * HASHED_ROWS), generator=gen, device=dev)
     part = big[:, HASHED_ROWS:2 * HASHED_ROWS]
     sub = idx[:1 << 22]
     check(torch.equal(gather.take_cm(part, sub),
                       gather.take_cm_plain(part, sub)),
           "take_cm on a column slice differs from its plain version")
-    del big, part, sent
+    sub8 = sub.view(8, -1)
+    err, ulp = check_wsum(torch, gather, part, sub8, w[:, :sub8.shape[1]]
+                          .contiguous(), "column slice")
+    wsum_err, wsum_ulp = max(wsum_err, err), max(wsum_ulp, ulp)
+    check_one_hot(torch, gather, part, sub8, gen, "column slice")
+    del big, part, sent, sent8, odd, odd8, oddw
 
-    ms = time_ms(lambda: gather.take_cm(table, idx), torch)
-    plain_ms = time_ms(lambda: gather.take_cm_plain(table, idx), torch)
-    library_ms = time_ms(lambda: torch.index_select(table, 1, idx), torch)
-    rows_touched = int(torch.unique(idx).numel())
-    nbytes = 4 * PROP_M + 4 * 4 * PROP_M + 4 * 4 * rows_touched
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[kernel] take_cm M={PROP_M} rows={HASHED_ROWS}: {ms:.4f} ms "
-          f"(plain {plain_ms:.4f}, index_select {library_ms:.4f}, "
-          f"bound {bound_ms:.4f} ms from {nbytes} B)", flush=True)
-    return {
-        "name": "take_cm (hash-grid gather, K4)",
-        "route": "cuda",
-        "source": "ucnerf_tpu_torch/csrc/gather.cu",
-        "replaces": "ucnerf_tpu/ops/gather.py:129",
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "library_ms": library_ms,
-        "shape": {"C": 4, "rows": HASHED_ROWS, "M": PROP_M},
-    }
+    take, wsum = k4_times(torch, gather, table, idx8, w)
+    print_k4("uniform", take, wsum)
+    # The same at a NeRF level of the chunk and at the two levels of a
+    # training microbatch (1500 rays), where the interleave of the level's
+    # 2^21 rows, which does not shrink with the stream, weighs most.
+    smaller = []
+    for label, div in (("nerf level", 4), ("microbatch proposal level", 10),
+                       ("microbatch nerf level", 40)):
+        n = idx8.shape[1] // div
+        t, ws = k4_times(torch, gather, table, idx8[:, :n].contiguous(),
+                         w[:, :n].contiguous())
+        print_k4(f"uniform, {label}", t, ws)
+        smaller.append({"shape": label, "take_cm": t, "take_wsum_cm": ws})
+    print(f"[kernel] take_wsum_cm max abs err {wsum_err:.3g}, "
+          f"{wsum_ulp:.2f} ulp of sum|w*row| (limit {WSUM_ULPS})",
+          flush=True)
+    wsum.update(max_abs_err=wsum_err, max_err_ulp_of_sum_abs=wsum_ulp,
+                bound_by="bytes")
+    return dict(
+        take,
+        name="take_cm / take_wsum_cm (hash-grid gather, K4; the second "
+             "entry point fuses the 8-corner weighted sum)",
+        route="cuda",
+        source="ucnerf_tpu_torch/csrc/gather.cu",
+        replaces="ucnerf_tpu/ops/gather.py:129",
+        max_abs_err=max_err,
+        bound_by="bytes",
+        shape={"C": 4, "rows": HASHED_ROWS, "M": PROP_M},
+        take_wsum_cm=wsum, smaller_shapes=smaller)
 
 
 def grid_specs(configs, hashgrid):
@@ -428,10 +556,40 @@ def scatter_phase(torch, scatter, hashgrid, configs):
     return k1, k2, k3, k5
 
 
+def chunked_corner_cases(torch, scatter):
+    """K5 where the big stream does not reach: every channel count it takes,
+    a last tile that is not full, and in one tile several rows, two of them
+    on a tile edge, whose runs in a chunk pass the one-thread limit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, hot = 2500, torch.tensor([1020, 1023, 1024, 1500, 2047, 2499],
+                                   device=dev)
+    for c in (1, 2, 3, 4, 8):
+        for chunks in (1, 3, 24):
+            m = chunks * 20000
+            idx = torch.randint(0, rows, (m,), generator=gen, device=dev)
+            pick = torch.randint(0, 2 * hot.numel(), (m,), generator=gen,
+                                 device=dev)
+            idx = torch.where(pick < hot.numel(),
+                              hot[pick.clamp_max(hot.numel() - 1)], idx)
+            idx = idx.to(torch.int32)
+            runs = torch.bincount(idx[:m // chunks].long(), minlength=rows)
+            check(int((runs > scatter.LONG_RUN).sum()) >= hot.numel(),
+                  "K5 corner case: the hot rows' runs are not long")
+            values = torch.randn((c, m), generator=gen, device=dev)
+            check_scatter(
+                torch, f"K5 corner case C={c} G={chunks}",
+                lambda: scatter.scatter_add_chunked_cm(
+                    values, idx, rows, num_chunks=chunks),
+                scatter.scatter_add_chunked_cm_plain(values.double(), idx,
+                                                     rows))
+
+
 def chunked_phase(torch, scatter, values, idx, rows, perm, starts, k1_call):
     """K5 on a stream K1 was just held at: against the float64 plain
     version, bitwise across two launches, and against K1's result, at each
     chunk count; its times beside K1's on the same stream."""
+    chunked_corner_cases(torch, scatter)
     c, m = values.shape
     want64 = scatter.scatter_add_chunked_cm_plain(values.double(), idx, rows)
     k1_out = scatter.segment_sum_cm(
@@ -544,6 +702,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     by_kernel = read_launches(gather, scatter)
+    check_fused_entry(gather, "render")
     launches = by_kernel["K4"]
     peak = torch.cuda.max_memory_allocated()
 
@@ -551,7 +710,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
         cfg.prop_mlp.with_grid(g).grid_num_levels
         for g in cfg.model.prop_desired_grid_size[:cfg.model.num_levels - 1])
     check(launches == levels * chunks,
-          f"take_cm launched {launches} times, expected {levels} per chunk "
+          f"K4 launched {launches} times, expected {levels} per chunk "
           f"x {chunks} chunks")
     check(sum(by_kernel.values()) == launches,
           f"a render launched a backward kernel: {by_kernel}")
@@ -567,7 +726,8 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
           f"render_subchunks {cfg.render_subchunks}: "
           f"{[round(s, 3) for s in secs]} s, rays/s "
           f"{[round(n / s, 1) for n, s in zip(num_rays, secs)]}, "
-          f"take_cm launches {launches} ({levels}/chunk x {chunks}), "
+          f"K4 (take_wsum_cm) launches {launches} ({levels}/chunk x "
+          f"{chunks}), "
           f"peak {peak / 2**30:.2f} GiB", flush=True)
 
     # 64-ray chunk: the card (kernels) against the CPU (plain versions).
@@ -603,6 +763,72 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
     return res, eval_step, views, cfg, model
 
 
+def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
+                     k4):
+    """K4's two entry points on the corner indices and weights of one render
+    chunk: those of the proposal level and of the NeRF level with the most
+    rows touched.  Recorded from the encoder's own calls.  Then the
+    interleave of each grid's table, level by level and in one pass."""
+    recorded = []
+
+    def recorder(table, idx, w, bf16=False):
+        recorded.append((table.detach(), idx, w))
+        return gather.take_wsum_cm(table, idx, w, bf16=bf16)
+
+    batch = {k: torch.from_numpy(np.array(
+        v.reshape((-1,) + v.shape[2:])[:cfg.render_chunk_size])).cuda()
+        for k, v in view.items()}
+    # The encoder reaches the kernels through its module's `gather` name.
+    hashgrid.gather = types.SimpleNamespace(take_cm=gather.take_cm,
+                                            take_wsum_cm=recorder)
+    try:
+        eval_step(batch, 1.0, 0)
+    finally:
+        hashgrid.gather = gather
+    torch.cuda.synchronize()
+    by_n = {}
+    for table, idx, w in recorded:
+        by_n.setdefault(idx.shape[1], []).append((table, idx, w))
+    check(len(by_n) == 2, f"a render chunk's K4 launches have point counts "
+          f"{sorted(by_n)}; expected the proposal's and the NeRF field's")
+    del recorded
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    calls = []
+    for grid, n in zip(("nerf", "proposal"), sorted(by_n)):
+        table, idx, w = max(by_n[n], key=lambda t: int(torch.unique(
+            t[1]).numel()))
+        check(torch.equal(gather.take_cm(table, idx),
+                          gather.take_cm_plain(table, idx)),
+              f"take_cm on the {grid} level's indices differs from its "
+              f"plain version")
+        err, ulp = check_wsum(torch, gather, table, idx, w, f"{grid} level")
+        check_one_hot(torch, gather, table, idx, gen, f"{grid} level")
+        take, wsum = k4_times(torch, gather, table, idx, w)
+        print_k4(f"real {grid} level", take, wsum)
+        wsum.update(max_abs_err=err, max_err_ulp_of_sum_abs=ulp)
+        calls.append({"grid": grid, "take_cm": take, "take_wsum_cm": wsum})
+    k4["real_indices"] = calls
+    # What the other placement of the interleave would cost: the wrappers
+    # interleave a level's slice on every launch; once per encode would be
+    # one pass over the whole table, handed to the level launches.
+    k4["interleave_per_encode"] = []
+    for name, module in model.named_modules():
+        if not hasattr(module, "grid_spec"):
+            continue
+        table, offs = module.table.detach(), module.grid_spec.offsets
+        rec = {"grid": name, "rows": table.shape[1], "levels": len(offs) - 1,
+               "per_level_ms": sum(
+                   time_ms(lambda: gather.interleave_cm(table[:, lo:hi]),
+                           torch) for lo, hi in zip(offs[:-1], offs[1:])),
+               "whole_table_ms": time_ms(
+                   lambda: gather.interleave_cm(table), torch)}
+        print(f"[kernel] interleave of {name}'s table ({rec['rows']} rows): "
+              f"{rec['per_level_ms']:.4f} ms as {rec['levels']} level "
+              f"slices, {rec['whole_table_ms']:.4f} ms as one pass",
+              flush=True)
+        k4["interleave_per_encode"].append(rec)
+
+
 def train_batch(views, cfg, n, seed):
     """n rays drawn without replacement from the views, with targets made
     with numpy: a smooth colour of the view direction, sky where it points
@@ -622,6 +848,7 @@ def train_batch(views, cfg, n, seed):
 
 def reset_launches(gather, scatter):
     gather.take_cm.launches = 0
+    gather.take_wsum_cm.launches = 0
     scatter.scatter_add_cm.launches = 0
     scatter.scatter_add_dense_cm.launches = 0
     scatter.scatter_add_packed_cm.launches = 0
@@ -632,8 +859,25 @@ def read_launches(gather, scatter):
     return {"K1": scatter.scatter_add_cm.launches,
             "K2": scatter.scatter_add_dense_cm.launches,
             "K3": scatter.scatter_add_packed_cm.launches,
-            "K4": gather.take_cm.launches,
+            # K4 is one kernel family with two entry points.
+            "K4": gather.take_cm.launches + gather.take_wsum_cm.launches,
             "K5": scatter.scatter_add_chunked_cm.launches}
+
+
+# K4's launches on the main paths by entry point, summed over the paths.
+K4_BY_ENTRY = {"take_cm": 0, "take_wsum_cm": 0}
+
+
+def check_fused_entry(gather, label):
+    """No sample position carries a gradient on the paths driven here, so
+    every K4 launch is the fused entry and none keeps the gathered rows.
+    Called once per path, right after the path's launches are read."""
+    check(gather.take_cm.launches == 0 and gather.take_wsum_cm.launches > 0,
+          f"{label}: take_cm launched {gather.take_cm.launches} times and "
+          f"take_wsum_cm {gather.take_wsum_cm.launches}; expected every K4 "
+          f"launch to be take_wsum_cm")
+    K4_BY_ENTRY["take_cm"] += gather.take_cm.launches
+    K4_BY_ENTRY["take_wsum_cm"] += gather.take_wsum_cm.launches
 
 
 def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
@@ -667,6 +911,7 @@ def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
         totals.append(float(stats["loss"]))
         terms.append({k: float(v) for k, v in stats["losses"].items()})
     launches = read_launches(gather, scatter)
+    check_fused_entry(gather, f"train {label}")
     peak = torch.cuda.max_memory_allocated()
 
     for i, (total, t) in enumerate(zip(totals, terms)):
@@ -787,6 +1032,7 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size):
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = read_launches(gather, scatter)
+            check_fused_entry(gather, f"CLI --max-steps {max_steps}")
             with open(log_path) as f:
                 f.seek(offset)
                 log = f.read()
@@ -931,7 +1177,8 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
                   f"one training step of {batch['origins'].shape[0]} rays"
                   + (" (bf16 backward)" if bf16 else ""),
                   ("rows_kernel", "long_rows_kernel", "RadixSort",
-                   "searchsorted", "take_cm_kernel"))
+                   "searchsorted", "take_wsum_kernel", "take_kernel",
+                   "interleave_kernel"))
 
 
 def write_profile(torch, prof, wall_us, path, what, names):
@@ -975,7 +1222,7 @@ def profile_chunk(torch, eval_step, view, cfg, path):
         wall_us = (time.perf_counter() - t0) * 1e6
     write_profile(torch, prof, wall_us, path,
                   f"one chunk of {cfg.render_chunk_size} rays",
-                  ("take_cm_kernel",))
+                  ("take_wsum_kernel", "take_kernel", "interleave_kernel"))
 
 
 def main(argv=None):
@@ -1015,6 +1262,8 @@ def main(argv=None):
     k1, k2, k3, k5 = scatter_phase(torch, scatter, hashgrid, configs)
     slice_res, eval_step, views, cfg, model = slice_phase(
         torch, gather, scatter, configs, cameras, step)
+    real_index_phase(torch, gather, hashgrid, eval_step, views[0], cfg, model,
+                     k4)
     if args.profile:
         profile_chunk(torch, eval_step, views[0], cfg, args.profile)
     del eval_step
@@ -1073,6 +1322,17 @@ def main(argv=None):
         check((entry["launches"] > 0) == (key != "K5"),
               f"{key} was launched {entry['launches']} times on the main "
               f"paths: {entry['launches_by_path']}")
+    # check_fused_entry held on every path that each K4 launch was the fused
+    # entry; take_cm is launched where sample positions need a gradient, and
+    # here by the kernel and real-index phases.
+    check(sum(K4_BY_ENTRY.values()) == k4["launches"],
+          f"K4's launches by entry {K4_BY_ENTRY} do not add up to "
+          f"{k4['launches']}")
+    k4["launches_by_entry"] = dict(K4_BY_ENTRY)
+    k4["take_wsum_cm"].update(
+        name="take_wsum_cm (K4's fused entry: gather + 8-corner weighted "
+             "sum)", route=k4["route"], source=k4["source"],
+        replaces=k4["replaces"], launches=k4["launches"])
     k4["launches_per_chunk"] = slice_res["launches_per_chunk"]
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2")):
         entry["launches_per_step"] = train_res["launches_per_step"][key]

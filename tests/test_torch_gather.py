@@ -8,6 +8,13 @@ CUDA kernel itself is held against that plain version on the card by
 values through the MXU as a two-bf16 split (hi + residual), which recovers
 f32 to ~1e-5 relative.  The bf16 mode is exact on both sides (a one-hot
 contraction of bf16-rounded values), so it is compared bitwise.
+
+``take_wsum_cm`` (the gather with the 8-corner weighted sum fused in) is held
+against the same Pallas gather followed by the weighted corner sum in jnp.
+Its tolerance is relative to ``mag = sum_k |w_k * row_k|``, the magnitude of
+what is summed: 2e-5 x mag in f32 mode (the Pallas split, per row), and 8 ulp
+(2^-23) of mag in bf16 mode, where both sides hold the same rounded rows and
+only the order of the 8 f32 additions differs.
 """
 
 import jax.numpy as jnp
@@ -141,3 +148,99 @@ def test_take_cm_rejects_table_grad_and_other_devices(rng):
     with pytest.raises(ValueError):
         tgather.take_cm(torch.zeros((4, 64), device="meta"),
                         torch.zeros(8, dtype=torch.int32, device="meta"))
+
+
+def _wsum_inputs(rng, c, rows, n, lo=0):
+    """A packed table, corner indices with sentinels mixed in, and weights
+    in [0, 1) as trilinear weights are."""
+    tbl = _table(rng, c, lo + rows + 37, scale=3.0, shift=0.5)
+    idx = rng.integers(0, rows, (8, n)).astype(np.int32)
+    at = rng.random((8, n)) < 0.05
+    idx[at] = rows + rng.integers(0, 4000, int(at.sum()))
+    idx[0, :2] = [rows, np.iinfo(np.int32).max]
+    w = rng.random((8, n)).astype(np.float32)
+    return tbl, idx, w
+
+
+def _pallas_wsum(level, idx, w, bf16):
+    rows = _pallas(level, idx.reshape(-1), span_rows=512, block_k=256,
+                   two_pass=not bf16)
+    rows = rows.reshape(level.shape[0], 8, -1)
+    return (np.asarray((jnp.asarray(rows) * jnp.asarray(w)[None]).sum(axis=1)),
+            (np.abs(rows) * w[None]).sum(axis=1))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c,rows,n,lo", [
+    (4, 2048, 1024, 0),      # the encoder's shape: 4 channels, aligned N
+    (4, 1500, 1003, 700),    # a column slice; N a multiple of no block size
+    (2, 1000, 77, 0),        # another channel count, N not a multiple of 4
+])
+def test_take_wsum_cm_matches_pallas(rng, bf16, c, rows, n, lo):
+    tbl, idx, w = _wsum_inputs(rng, c, rows, n, lo)
+    level = torch.from_numpy(tbl)[:, lo:lo + rows]
+    assert lo == 0 or not level.is_contiguous()
+    before = (tgather.take_wsum_cm.launches, tgather.take_cm.launches)
+    got = tgather.take_wsum_cm(level, torch.from_numpy(idx),
+                               torch.from_numpy(w), bf16=bf16).numpy()
+    # CPU: no kernel launch.
+    assert before == (tgather.take_wsum_cm.launches,
+                      tgather.take_cm.launches)
+    assert got.shape == (c, n)
+    want, mag = _pallas_wsum(np.ascontiguousarray(tbl[:, lo:lo + rows]), idx,
+                             w, bf16)
+    tol = (8 * 2.0**-23 if bf16 else 2e-5) * mag
+    assert (np.abs(got - want) <= tol + 1e-30).all(), float(
+        (np.abs(got - want) / np.maximum(mag, 1e-30)).max())
+    # A point whose 8 corners are all sentinels gets exactly 0.
+    idx[:, 5] = rows + 3
+    got = tgather.take_wsum_cm(level, torch.from_numpy(idx),
+                               torch.from_numpy(w), bf16=bf16).numpy()
+    np.testing.assert_array_equal(got[:, 5], 0.0)
+    if bf16:  # not vacuous: the unrounded rows are elsewhere
+        exact = tgather.take_wsum_cm(level, torch.from_numpy(idx),
+                                     torch.from_numpy(w)).numpy()
+        assert np.abs(exact - got).max() > 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_take_wsum_cm_one_hot_weights_are_take_cm(rng, bf16):
+    """One weight 1 and seven 0: the fused gather is the plain gather of
+    that corner, bitwise, and so bitwise the Pallas gather in bf16 mode."""
+    tbl, idx, _ = _wsum_inputs(rng, 4, 1200, 501)
+    pick = rng.integers(0, 8, (1, 501))
+    w = np.zeros((8, 501), np.float32)
+    np.put_along_axis(w, pick, 1.0, axis=0)
+    level = torch.from_numpy(tbl)[:, :1200]
+    got = tgather.take_wsum_cm(level, torch.from_numpy(idx),
+                               torch.from_numpy(w), bf16=bf16).numpy()
+    chosen = np.take_along_axis(idx, pick, axis=0)[0]
+    np.testing.assert_array_equal(got, _port(np.ascontiguousarray(
+        tbl[:, :1200]), chosen, bf16=bf16))
+    if bf16:
+        np.testing.assert_array_equal(got, _pallas(
+            np.ascontiguousarray(tbl[:, :1200]), chosen, two_pass=False))
+
+
+def test_take_wsum_cm_rejects_what_it_cannot_do(rng):
+    tbl, idx, w = _wsum_inputs(rng, 4, 300, 40)
+    t, i, wt = (torch.from_numpy(x) for x in (tbl, idx, w))
+    # It has no backward: weights that need a gradient are refused in grad
+    # mode (the encoder gathers with take_cm then), and taken without.
+    with pytest.raises(ValueError):
+        tgather.take_wsum_cm(t, i, wt.clone().requires_grad_())
+    with torch.no_grad():
+        out = tgather.take_wsum_cm(t, i, wt.clone().requires_grad_())
+    torch.testing.assert_close(out, tgather.take_wsum_cm(t, i, wt), rtol=0,
+                               atol=0)
+    with pytest.raises(ValueError):  # 8 corners, corner-major
+        tgather.take_wsum_cm(t, i[:7], wt[:7])
+    with pytest.raises(ValueError):
+        tgather.take_wsum_cm(t, i, wt[:, :39])
+    with pytest.raises(ValueError):
+        tgather.take_wsum_cm(torch.zeros((4, 64), device="meta"),
+                             torch.zeros((8, 4), dtype=torch.int32,
+                                         device="meta"),
+                             torch.zeros((8, 4), device="meta"))
+    with pytest.raises(ValueError):
+        tgather.interleave_cm(t)  # a CUDA-only helper

@@ -10,6 +10,7 @@ table gradient is tested in ``tests/test_torch_scatter.py``.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import torch
 from ucnerf_tpu import configs as jconfigs
 from ucnerf_tpu.ops import hashgrid as jhash
 from ucnerf_tpu_torch import configs as tconfigs
+from ucnerf_tpu_torch.ops import gather as tgather
 from ucnerf_tpu_torch.ops import hashgrid as thash
 
 torch.set_num_threads(2)
@@ -173,3 +175,60 @@ def test_init_table_and_table_grad_raises():
     with torch.no_grad():  # the render path ignores the backward knobs
         thash.encode_hex_cm(x01, None, table, spec,
                             bwd_value_dtype="bfloat16")
+
+
+def _count_gather_calls(monkeypatch):
+    """Counts of the encoder's calls to K4's two entry points."""
+    calls = {"take_cm": 0, "take_wsum_cm": 0}
+    for name in calls:
+        fn = getattr(tgather, name)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tgather, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("hex_n", [6, 1])
+def test_encode_takes_the_fused_gather_unless_weights_need_grad(
+        rng, monkeypatch, hex_n):
+    """One K4 call per level on every route: the fused ``take_wsum_cm`` on
+    the render path and where only the table requires grad, ``take_cm`` (rows
+    kept) where the positions require grad, whose gradient then matches
+    JAX's.  The three forwards agree."""
+    jspec, tspec = _specs(**GRID)
+    levels = tspec.num_levels
+    x01, stds, table = _inputs(rng, hex_n, 90, tspec)
+    cot = rng.normal(size=(tspec.output_dim, 90)).astype(np.float32)
+    calls = _count_gather_calls(monkeypatch)
+
+    def encode(t, x):
+        return thash.encode_hex_cm(x, torch.from_numpy(stds), t, tspec,
+                                   bwd_dense_sample=True)[0]
+
+    with torch.no_grad():
+        render = encode(torch.from_numpy(table), torch.from_numpy(x01))
+    assert calls == {"take_cm": 0, "take_wsum_cm": levels}
+
+    tt = torch.from_numpy(table).requires_grad_()
+    train = encode(tt, torch.from_numpy(x01))
+    assert calls == {"take_cm": 0, "take_wsum_cm": 2 * levels}
+    (train * torch.from_numpy(cot)).sum().backward()
+    assert float(tt.grad.abs().max()) > 0
+
+    tx = torch.from_numpy(x01).requires_grad_()
+    posed = encode(torch.from_numpy(table), tx)  # a frozen table
+    assert calls == {"take_cm": levels, "take_wsum_cm": 2 * levels}
+    (posed * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(train.detach().numpy(), render.numpy(), **TOL)
+    np.testing.assert_allclose(posed.detach().numpy(), render.numpy(), **TOL)
+
+    want_x = jax.grad(lambda x: jnp.vdot(jhash.encode_hex_cm(
+        x, jnp.asarray(stds), jnp.asarray(table), jspec)[0], cot))(
+            jnp.asarray(x01))
+    want_x = np.asarray(want_x)
+    np.testing.assert_allclose(
+        tx.grad.numpy(), want_x, rtol=2e-4,
+        atol=2e-5 * float(np.abs(want_x).max()))
+    assert float(np.abs(want_x).max()) > 0

@@ -277,6 +277,19 @@ def _chunked_case(case, rng):
         return (np.ones((4, m), np.float32),
                 (rng.integers(0, 3, m) * 1500).astype(np.int32), rows,
                 chunks, tile, block)
+    elif case == "long_run":
+        # One chunk holds a run past the kernel's one-thread limit on the
+        # last row of a tile and a shorter one on the first row of the next;
+        # both rows are hit again in every other chunk.
+        rows, m, chunks, tile, block = 4096, 4 * 2048, 4, 1024, 512
+        idx = rng.integers(0, rows, m).astype(np.int32)
+        long_run = tscatter.LONG_RUN + 50
+        idx[2048:2048 + long_run] = 1023
+        idx[2048 + long_run:2048 + long_run + 40] = 1024
+        for g in range(chunks):
+            idx[g * 2048 + 2040:g * 2048 + 2048] = [1023, 1024] * 4
+        return (rng.normal(0, 1, (4, m)).astype(np.float32), idx, rows,
+                chunks, tile, block)
     else:
         rows, m, chunks, tile, block = 5000, 12288, case, 1024, 512
     return (rng.normal(0, 1, (4, m)).astype(np.float32),
@@ -284,7 +297,8 @@ def _chunked_case(case, rng):
             block)
 
 
-@pytest.mark.parametrize("case", [1, 4, 16, "uneven", "concentrated"])
+@pytest.mark.parametrize("case", [1, 4, 16, "uneven", "concentrated",
+                                  "long_run"])
 def test_scatter_add_chunked_cm_plain_matches_pallas(rng, case):
     vals, idx, rows, chunks, tile, block = _chunked_case(case, rng)
     got = tscatter.scatter_add_chunked_cm(

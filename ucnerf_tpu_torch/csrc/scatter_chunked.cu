@@ -9,22 +9,42 @@
 // grid keeps an output tile in VMEM while the chunks' contributions arrive in
 // chunk order, with a [tiles, G] table of block ranges prefetched as scalars.
 // Here the caller sorts the [G, M / G] view of the keys with one batched stable
-// torch.sort, and every output row is owned by one thread group
-// (scatter_common.cuh) that visits chunk 0, 1, ..., G - 1 in that order and
-// walks the row's run inside each chunk in sorted order: a fixed summation
-// order, no float atomics, bitwise the same on every launch.
+// torch.sort, and the kernel walks the KEYS, not the rows:
 //
-// Where a row's run lies inside a chunk is found by the group itself, with a
-// binary search of the chunk's sorted keys for the run's start and a galloping
-// search for its end (most runs hold 0 or 1 updates).  The alternative, a
-// dense [G, rows + 1] table of run starts made by the caller, costs G * rows
-// * 4 B of device memory (1.4 GB at G = 24 and 14.68 M rows) and the same
-// G * rows searches to fill it.
+//  * One block owns a tile of kTile consecutive output rows and keeps their
+//    sums in shared memory (C * kTile floats, zeroed once).
+//  * Where the tile's keys lie inside each chunk is found first, for a batch
+//    of chunks at once: one thread per (chunk, tile edge) runs one binary
+//    search, so the searches of a batch overlap.  That is G * rows / kTile
+//    search pairs in all, where a search per (row, chunk) costs G * rows.
+//  * Then, chunk by chunk in chunk order, the block reads the tile's range of
+//    that chunk's sorted keys (neighbouring threads, neighbouring keys; every
+//    key is read by one block).  The thread that sits on the first key of a
+//    run owns that row for this chunk (a row has at most one run per chunk):
+//    it sums the run's values through the permutation, in sorted order, and
+//    adds the sum to the row in shared memory.  A __syncthreads() between
+//    chunks keeps the chunk order.
+//  * A run longer than kLong (a coarse level's skew: one cell can take 1e5
+//    samples) is not walked by one thread: its start goes to a list in shared
+//    memory, and after the chunk's short runs the whole block sums each listed
+//    run with the fixed block tree (scatter_common.cuh).  Which runs are
+//    listed depends on the data alone, and each belongs to another row, so
+//    the list's order does not matter.
+//  * After the last chunk the tile is stored, every row written, 0 where no
+//    update landed.
+//
+// The order of every sum is fixed by the data: no float atomics, bitwise the
+// same on every launch.
 //
 // Bound (bytes, at 3.35 TB/s): per update the key (4 B), the permutation entry
-// (8 B) and C value words; per row C output words.  The searches read each key
-// many times over (G * rows * log2(M / G) probes, mostly from L2), so the
-// kernel is bound by those probes, not by the bytes.
+// (8 B) and C value words; per row C output words.  What the kernel pays above
+// that is the same as K1 on the same stream, and it takes K1's time: the
+// value words are read through the permutation, 4-byte words scattered over a
+// chunk's columns, so each costs a 32-byte sector of DRAM.  (A chunk's values
+// would fit L2, 10.8 MB a chunk of the NeRF stream at G = 24, but the blocks
+// in flight are spread over all chunks, so nothing stays there.)  A variant
+// that found the ranges in a kernel of its own and took the chunks' ranges as
+// one list, four positions a thread, was no faster on the card.
 
 #include <cstdint>
 
@@ -35,6 +55,9 @@
 namespace {
 
 using namespace ucnerf;
+
+constexpr int kTile = 1024;           // output rows per block
+constexpr int kBatch = kThreads / 2;  // chunks whose tile ranges are found at once
 
 // First position in sorted keys[lo, hi) whose key is >= key.
 __device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ keys,
@@ -51,137 +74,114 @@ __device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ keys,
   return lo;
 }
 
-// End of the run of `key` that starts at lo = lower_bound(key) in keys[, end):
-// doubling steps while the key holds, then a binary search of the last step.
-__device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ keys,
-                                           int64_t lo, int64_t end,
-                                           int64_t key) {
-  if (lo >= end || __ldg(keys + lo) != key) return lo;
-  int64_t last = lo;  // keys[last] == key
-  int64_t step = 1;
-  while (last + step < end && __ldg(keys + last + step) == key) {
-    last += step;
-    step <<= 1;
-  }
-  const int64_t stop = last + step < end ? last + step : end;
-  return lower_bound(keys, last + 1, stop, key + 1);
-}
-
-// The run of row r in chunk g: sorted positions [lo, hi) of the whole stream.
-__device__ __forceinline__ void chunk_run(const int32_t* __restrict__ keys,
-                                          int64_t chunk_len, int g, int64_t r,
-                                          int64_t* lo, int64_t* hi) {
-  const int64_t base = static_cast<int64_t>(g) * chunk_len;
-  *lo = lower_bound(keys, base, base + chunk_len, r);
-  *hi = run_end(keys, *lo, base + chunk_len, r);
-}
-
-// First pass: a kGroup-lane group per row walks the chunks in order.  A row
-// whose updates over all chunks pass kLong is listed for the second pass (the
-// group stops where the count passes kLong; what it summed is dropped).
 template <int C>
-__global__ void __launch_bounds__(kThreads) chunk_rows_kernel(
+__global__ void __launch_bounds__(kThreads) chunk_tiles_kernel(
     const float* __restrict__ values, int64_t ldv,
     const int32_t* __restrict__ keys, const int64_t* __restrict__ perm,
     int chunks, int64_t chunk_len, int64_t rows, float* __restrict__ out,
-    int64_t ldo, int32_t* __restrict__ long_rows,
-    int32_t* __restrict__ long_count) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t r = tid / kGroup;
-  const int sub = static_cast<int>(tid % kGroup);
-  const bool valid = r < rows;
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-
-  bool is_long = false;
-  if (valid) {
-    int64_t count = 0;
-    for (int g = 0; g < chunks; ++g) {
-      int64_t lo, hi;
-      chunk_run(keys, chunk_len, g, r, &lo, &hi);
-      count += hi - lo;
-      if (count > kLong) {
-        is_long = true;
-        break;
-      }
-      // perm holds columns inside the chunk.
-      const int64_t base = static_cast<int64_t>(g) * chunk_len;
-      sum_run<C, false>(values + base, ldv, perm, lo, hi, sub, kGroup, acc);
-    }
-  }
-  group_reduce<C>(acc);  // every lane of the warp takes part
-  if (valid && sub == 0) {
-    if (is_long) {
-      long_rows[atomicAdd(long_count, 1)] = static_cast<int32_t>(r);
-    } else {
-      store_row<C>(acc, out, ldo, r);
-    }
-  }
-}
-
-// Second pass: a block per listed row, chunk by chunk.
-template <int C>
-__global__ void __launch_bounds__(kThreads) chunk_long_rows_kernel(
-    const float* __restrict__ values, int64_t ldv,
-    const int32_t* __restrict__ keys, const int64_t* __restrict__ perm,
-    int chunks, int64_t chunk_len, float* __restrict__ out, int64_t ldo,
-    const int32_t* __restrict__ long_rows,
-    const int32_t* __restrict__ long_count) {
+    int64_t ldo) {
+  __shared__ float tile[C * kTile];
   __shared__ float red[kThreads / 32 * C];
-  const int n = *long_count;
-  for (int i = blockIdx.x; i < n; i += gridDim.x) {
-    const int64_t r = long_rows[i];
-    float acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-    for (int g = 0; g < chunks; ++g) {
-      int64_t lo, hi;
-      chunk_run(keys, chunk_len, g, r, &lo, &hi);
-      const int64_t base = static_cast<int64_t>(g) * chunk_len;
-      sum_run<C, false>(values + base, ldv, perm, lo, hi, threadIdx.x,
-                        kThreads, acc);
+  __shared__ int64_t edges[2 * kBatch];  // [2 b], [2 b + 1]: chunk b's range
+  __shared__ int64_t long_runs[kTile];   // starts of the runs left to the block
+  __shared__ int long_count;
+
+  const int tid = threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t row1 = row0 + kTile < rows ? row0 + kTile : rows;
+  for (int i = tid; i < C * kTile; i += kThreads) tile[i] = 0.0f;
+  if (tid == 0) long_count = 0;
+
+  for (int g0 = 0; g0 < chunks; g0 += kBatch) {
+    const int batch = chunks - g0 < kBatch ? chunks - g0 : kBatch;
+    __syncthreads();  // the last batch's edges are no longer read
+    if (tid < 2 * batch) {
+      const int64_t base = static_cast<int64_t>(g0 + tid / 2) * chunk_len;
+      edges[tid] = lower_bound(keys, base, base + chunk_len,
+                               tid % 2 ? row1 : row0);
     }
-    block_reduce<C>(acc, red);
-    if (threadIdx.x == 0) store_row<C>(acc, out, ldo, r);
+    __syncthreads();
+
+    for (int b = 0; b < batch; ++b) {
+      const int64_t lo = edges[2 * b], hi = edges[2 * b + 1];
+      // perm holds columns inside the chunk.
+      const float* chunk_values =
+          values + static_cast<int64_t>(g0 + b) * chunk_len;
+      for (int64_t p = lo + tid; p < hi; p += kThreads) {
+        const int32_t key = __ldg(keys + p);
+        if (p > lo && __ldg(keys + p - 1) == key) continue;  // not a run's head
+        int64_t end = p + 1;
+        while (end < hi && end - p <= kLong && __ldg(keys + end) == key) ++end;
+        if (end - p > kLong) {
+          long_runs[atomicAdd(&long_count, 1)] = p;
+          continue;
+        }
+        float acc[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+        sum_run<C, false>(chunk_values, ldv, perm, p, end, 0, 1, acc);
+        const int local = static_cast<int>(key - row0);
+#pragma unroll
+        for (int c = 0; c < C; ++c) tile[c * kTile + local] += acc[c];
+      }
+      __syncthreads();  // the short runs are added and the list is complete
+      const int listed = long_count;
+      for (int i = 0; i < listed; ++i) {
+        const int64_t p = long_runs[i];
+        const int32_t key = __ldg(keys + p);
+        const int64_t end = lower_bound(keys, p, hi,
+                                        static_cast<int64_t>(key) + 1);
+        float acc[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+        sum_run<C, false>(chunk_values, ldv, perm, p, end, tid, kThreads, acc);
+        block_reduce<C>(acc, red);
+        if (tid == 0) {
+          const int local = static_cast<int>(key - row0);
+#pragma unroll
+          for (int c = 0; c < C; ++c) tile[c * kTile + local] += acc[c];
+        }
+      }
+      // Before the next chunk appends to the list and adds to the tile, every
+      // thread has read this chunk's count and thread 0 has added its sums.
+      __syncthreads();
+      if (tid == 0) long_count = 0;
+      __syncthreads();
+    }
+  }
+
+  const int width = static_cast<int>(row1 - row0);
+  for (int i = tid; i < width; i += kThreads) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c * ldo + row0 + i] = tile[c * kTile + i];
   }
 }
 
 template <int C>
 int launch(const float* values, int64_t ldv, const int32_t* keys,
            const int64_t* perm, int chunks, int64_t chunk_len, int64_t rows,
-           float* out, int64_t ldo, int32_t* long_rows, int32_t* long_count,
-           cudaStream_t stream) {
-  const int64_t threads = rows * kGroup;
-  const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  chunk_rows_kernel<C><<<static_cast<unsigned>(blocks), kThreads, 0,
-                         stream>>>(values, ldv, keys, perm, chunks, chunk_len,
-                                   rows, out, ldo, long_rows, long_count);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_long_rows_kernel<C><<<kLongBlocks, kThreads, 0, stream>>>(
-      values, ldv, keys, perm, chunks, chunk_len, out, ldo, long_rows,
-      long_count);
+           float* out, int64_t ldo, cudaStream_t stream) {
+  const int64_t blocks = (rows + kTile - 1) / kTile;
+  chunk_tiles_kernel<C><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          stream>>>(values, ldv, keys, perm, chunks, chunk_len,
+                                    rows, out, ldo);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // K5.  values: C planes of M = chunks * chunk_len floats, plane c at values +
-// c * ldv.  keys: int32 [chunks * chunk_len], each chunk sorted ascending.
-// perm: int64 [chunks * chunk_len], sorted position -> column inside its
-// chunk (what a batched torch.sort over the [chunks, chunk_len] view
-// returns).  out: C planes of `rows` floats at out + c * ldo; every row is
-// written.  long_rows: int32 scratch of at least min(rows, M / 257 + 1)
-// entries; long_count: one int32, zeroed by the caller.  Returns
-// cudaGetLastError() after the launches.
+// c * ldv.  keys: int32 [chunks * chunk_len], each chunk sorted ascending;
+// keys outside [0, rows) are skipped.  perm: int64 [chunks * chunk_len],
+// sorted position -> column inside its chunk (what a batched torch.sort over
+// the [chunks, chunk_len] view returns).  out: C planes of `rows` floats at
+// out + c * ldo; every row is written.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int ucnerf_chunked_sum_cm(const void* values, long long ldv,
                                      const void* keys, const void* perm,
                                      int chunks, long long chunk_len,
                                      long long rows, void* out, long long ldo,
-                                     int channels, void* long_rows,
-                                     void* long_count, void* stream) {
+                                     int channels, void* stream) {
   if (rows <= 0) return 0;
   if (chunks < 1 || chunk_len < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -192,8 +192,6 @@ extern "C" int ucnerf_chunked_sum_cm(const void* values, long long ldv,
                      static_cast<const int32_t*>(keys),                      \
                      static_cast<const int64_t*>(perm), chunks, chunk_len,   \
                      rows, static_cast<float*>(out), ldo,                    \
-                     static_cast<int32_t*>(long_rows),                       \
-                     static_cast<int32_t*>(long_count),                      \
                      static_cast<cudaStream_t>(stream));
   switch (channels) {
     UCNERF_CASE(1)

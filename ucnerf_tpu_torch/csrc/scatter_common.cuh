@@ -3,19 +3,21 @@
 // sorted run, and the fixed-order reductions.
 //
 // Every kernel built from these is a GATHER-form reduction with no float
-// atomics: the caller sorts the keys with a stable sort, every output row is
-// owned by exactly one thread group, which sums the row's run(s) in a fixed
-// order and writes the row, 0 where no update lands.  The result is bitwise
-// the same on every launch.
+// atomics: the caller sorts the keys with a stable sort, every run of equal
+// keys has exactly one owner, which sums it in a fixed order, and every output
+// row is written once, 0 where no update lands.  The result is bitwise the
+// same on every launch.
 //
-// Order inside a group: lane j of a G-lane group sums positions j, j+G, ...
-// of each run in turn, then the G lanes combine with a fixed xor-shuffle tree.
-// Rows whose walk is longer than kLong elements (a coarse level's skew: one
-// cell can take 1e5 samples) are not walked by a 4-lane group: the group
-// appends the row to a list (integer atomic; the list's order does not
-// matter), and a second kernel gives each listed row a whole 256-thread block
-// with a fixed block-tree reduction.  Each row's sum is the same whichever
-// block takes it.
+// scatter.cu gives each output row a G-lane group: lane j sums positions j,
+// j+G, ... of each run in turn, then the G lanes combine with a fixed
+// xor-shuffle tree.  Rows whose walk is longer than kLong elements (a coarse
+// level's skew: one cell can take 1e5 samples) are not walked by a 4-lane
+// group: the group appends the row to a list (integer atomic; the list's
+// order does not matter), and a second kernel gives each listed row a whole
+// 256-thread block with a fixed block-tree reduction.  Each row's sum is the
+// same whichever block takes it.  scatter_chunked.cu gives each run to the
+// thread on its first key and runs longer than kLong to its whole block, with
+// the same block tree.
 
 #pragma once
 

@@ -6,11 +6,22 @@ channel-major ``[C, rows]`` table, with zeros for indices outside
 value rounded to bf16 and widened back (the JAX kernel's ``two_pass=False``,
 i.e. ``Config.grid_bf16_gather``).
 
-On a CUDA tensor it launches the hand-written kernel in ``csrc/gather.cu``
-(which replaces the Pallas ``gather_sorted_cm``; see the note there for its
-design and bound).  On a CPU tensor it runs ``take_cm_plain``, the plain
-PyTorch version, which the CPU tests compare against the JAX package.  There
-is no other route: a tensor on another device raises.
+``take_wsum_cm(table, idx, w)`` is the same gather with the encoder's weighted
+corner sum as its epilogue: ``out[:, n] = sum_k w[k, n] * table[:, idx[k, n]]``
+over the 8 corners of a point, so the ``[C, 8, N]`` gathered tensor is never
+stored.  The hash encoder launches it once per level wherever the weights
+need no gradient (every render, and every training step whose sample
+positions carry no gradient); ``take_cm`` serves the other case, where the
+gathered rows are kept for the weights' gradient.
+
+On a CUDA tensor both launch the hand-written kernels in ``csrc/gather.cu``
+(which replace the Pallas ``gather_sorted_cm``; see the note there for the
+design and bound): the level's slice is first copied into a row-interleaved
+``[rows, C]`` scratch image, so that each index is one 16-byte load.  Both
+count in ``take_cm.launches`` / ``take_wsum_cm.launches``.  On a CPU tensor
+they run ``take_cm_plain`` / ``take_wsum_cm_plain``, the plain PyTorch
+versions, which the CPU tests compare against the JAX package.  There is no
+other route: a tensor on another device raises.
 """
 
 from __future__ import annotations
@@ -20,6 +31,11 @@ import ctypes
 import torch
 
 from ucnerf_tpu_torch.ops import build
+
+# The kernels take up to this many channels (``kMaxChannels`` in
+# csrc/gather.cu); 4 has the 16-byte path.
+MAX_CHANNELS = 16
+CORNERS = 8
 
 
 def take_cm_plain(table, idx, bf16: bool = False):
@@ -36,13 +52,74 @@ def take_cm_plain(table, idx, bf16: bool = False):
     return out
 
 
+def take_wsum_cm_plain(table, idx, w, bf16: bool = False):
+    """Plain PyTorch version of the fused kernel: the gather, the product
+    with the weights and the sum over the corner axis, as three passes.
+    table [C, rows], idx int [8, N], w [8, N] -> [C, N]."""
+    return (take_cm_plain(table, idx, bf16) * w[None]).sum(dim=1)
+
+
 def _bind(lib):
-    fn = lib.ucnerf_take_cm
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    take = lib.ucnerf_take_cm
+    take.argtypes = [vp, ll, ll, vp, ll, vp, vp, ci, ci, vp]
+    take.restype = ci
+    wsum = lib.ucnerf_take_wsum_cm
+    wsum.argtypes = [vp, ll, ll, vp, vp, ll, vp, vp, ci, ci, vp]
+    wsum.restype = ci
+    inter = lib.ucnerf_interleave_cm
+    inter.argtypes = [vp, ll, ll, vp, ci, vp]
+    inter.restype = ci
+    return {"take": take, "wsum": wsum, "interleave": inter}
+
+
+def _check_table(name, table):
+    """What the kernels ask of a CUDA table slice."""
+    if table.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {table.device}")
+    if table.dtype != torch.float32 or table.dim() != 2:
+        raise ValueError(f"table must be 2-D float32, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    c, rows = table.shape
+    if table.stride(1) != 1 and rows > 1:
+        raise ValueError("table rows must be contiguous (stride 1)")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"{c} channels: the kernels take at most "
+                         f"{MAX_CHANNELS}")
+    if rows >= 2**31:
+        raise ValueError(f"{rows} rows do not fit an int32 index")
+
+
+def _check_idx(idx):
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("idx must be a contiguous int32 tensor")
+
+
+def _image(table):
+    """Scratch for the row-interleaved copy of a [C, rows] slice."""
+    c, rows = table.shape
+    return torch.empty((rows, c), dtype=torch.float32, device=table.device)
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def interleave_cm(table):
+    """The ``[rows, C]`` image of a CUDA ``[C, rows]`` table slice that
+    ``take_cm`` and ``take_wsum_cm`` make for themselves on every call; on
+    its own it serves to time that part (``chip_smoke.py``)."""
+    _check_table("interleave_cm", table)
+    c, rows = table.shape
+    image = _image(table)
+    with torch.cuda.device(table.device):
+        fn = _bind(build.load("gather"))["interleave"]
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), table.stride(0), rows, image.data_ptr(),
+                 c, stream)
+    _raise_on(err, "interleave")
+    return image
 
 
 def take_cm(table, idx, bf16: bool = False):
@@ -58,30 +135,78 @@ def take_cm(table, idx, bf16: bool = False):
         raise ValueError(f"table on {table.device}, idx on {idx.device}")
     if table.device.type == "cpu":
         return take_cm_plain(table, idx, bf16)
-    if table.device.type != "cuda":
-        raise ValueError(f"take_cm runs on cuda or cpu, not {table.device}")
-    if table.dtype != torch.float32 or table.dim() != 2:
-        raise ValueError(f"table must be 2-D float32, got {table.dtype} "
-                         f"{tuple(table.shape)}")
+    _check_table("take_cm", table)
+    _check_idx(idx)
     c, rows = table.shape
-    if table.stride(1) != 1 and rows > 1:
-        raise ValueError("table rows must be contiguous (stride 1)")
-    if idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise ValueError("idx must be a contiguous int32 tensor")
     out = torch.empty((c,) + tuple(idx.shape), dtype=torch.float32,
                       device=table.device)
     m = idx.numel()
     if m == 0 or c == 0:
         return out
+    image = _image(table)
     with torch.cuda.device(table.device):
-        fn = _bind(build.load("gather"))
+        fn = _bind(build.load("gather"))["take"]
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), table.stride(0), rows, idx.data_ptr(), m,
-                 out.data_ptr(), c, int(bf16), stream)
-    if err != 0:
-        raise RuntimeError(f"gather kernel launch failed: cudaError {err}")
+                 out.data_ptr(), image.data_ptr(), c, int(bf16), stream)
+    _raise_on(err, "gather")
     take_cm.launches += 1
     return out
 
 
 take_cm.launches = 0
+
+
+def take_wsum_cm(table, idx, w, bf16: bool = False):
+    """Gather the 8 corner rows of N points and sum them with their weights.
+
+    ``out[c, n] = sum_k w[k, n] * r(table[c, idx[k, n]])`` for k = 0..7 in
+    that order, ``r`` the optional bf16 rounding, an index outside
+    ``[0, rows)`` contributing 0; products and sums in f32.  It differs from
+    ``take_wsum_cm_plain`` only in the order in which the 8 terms are added
+    (at most 8 ulp of ``sum_k |w * row|``), and equals ``take_cm`` bitwise
+    where one weight is 1 and the others 0.
+
+    Args:
+      table: [C, rows] float32, possibly a column slice (row stride 1).
+      idx: [8, N] int32, contiguous.
+      w: [8, N] float32, contiguous.  It gets no gradient here: with grad
+        mode on and ``w.requires_grad`` the call raises (the encoder then
+        gathers with ``take_cm`` and keeps the rows).
+      bf16: round each gathered value to bf16 first.
+
+    Returns:
+      [C, N] float32.
+    """
+    if not table.device == idx.device == w.device:
+        raise ValueError(f"table on {table.device}, idx on {idx.device}, "
+                         f"w on {w.device}")
+    if idx.dim() != 2 or idx.shape[0] != CORNERS or w.shape != idx.shape:
+        raise ValueError(f"idx and w must be [{CORNERS}, N], got "
+                         f"{tuple(idx.shape)} and {tuple(w.shape)}")
+    if torch.is_grad_enabled() and w.requires_grad:
+        raise ValueError("take_wsum_cm gives the weights no gradient")
+    if table.device.type == "cpu":
+        return take_wsum_cm_plain(table, idx, w, bf16)
+    _check_table("take_wsum_cm", table)
+    _check_idx(idx)
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError("w must be a contiguous float32 tensor")
+    c, rows = table.shape
+    n = idx.shape[1]
+    out = torch.empty((c, n), dtype=torch.float32, device=table.device)
+    if n == 0 or c == 0:
+        return out
+    image = _image(table)
+    with torch.cuda.device(table.device):
+        fn = _bind(build.load("gather"))["wsum"]
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), table.stride(0), rows, idx.data_ptr(),
+                 w.data_ptr(), n, out.data_ptr(), image.data_ptr(), c,
+                 int(bf16), stream)
+    _raise_on(err, "fused gather")
+    take_wsum_cm.launches += 1
+    return out
+
+
+take_wsum_cm.launches = 0

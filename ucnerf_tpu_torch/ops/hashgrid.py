@@ -2,14 +2,19 @@
 
 Table layout, level offsets, per-level resolutions and the prime-XOR hash
 are those of the JAX package (and so of the reference ``gridencoder.cu``).
-Each level's 8-corner lookups go through ``gather.take_cm`` over that level's
-slice of the channel-major ``[C, rows]`` table (the CUDA kernel on the card),
-and the corners are summed right after each level's gather, so no
-``[C, L*8*H*M]`` array ever exists.
+Each level's 8-corner lookups and their trilinear sum are one launch of
+``gather.take_wsum_cm`` over that level's slice of the channel-major
+``[C, rows]`` table (K4's fused entry on the card: the corner sum is the
+gather's epilogue), so neither a ``[C, L*8*H*M]`` nor a per-level
+``[C, 8, H*M]`` array exists.  Only where the trilinear weights themselves
+need a gradient (sample positions that require grad) does a level go through
+``gather.take_cm`` (K4's plain entry), keep its gathered rows and sum them in
+torch.  Either way K4 launches once per level.
 
-When the table requires grad, the gathers and corner sums run inside
-``_GatherWSum``, the counterpart of the JAX ``_gather_wsum_ml`` custom VJP:
-its backward fills the table gradient with the scatter kernels, K2
+When grad mode is on and the table or the positions require grad, the
+lookups run inside ``_GatherWSum``, the counterpart of the JAX
+``_gather_wsum_ml`` custom VJP: its backward fills the table gradient with
+the scatter kernels, K2
 (``scatter.scatter_add_dense_cm``) for the dense-prefix levels when
 ``bwd_dense_sample`` is on and, for the other levels, K1
 (``scatter.scatter_add_cm``) or, with ``bwd_value_dtype='bfloat16'``, K3
@@ -201,12 +206,13 @@ class _GatherWSum(torch.autograd.Function):
     """Per-level gather + trilinear corner sum with the table gradient
     (the JAX ``_gather_wsum_ml``, hashgrid.py:210-345).
 
-    Forward: for each level l, K4 over the level's slice of the table
-    (``gather.take_cm``) and the weighted sum over the 8 corners.  It saves
-    the corner indices and weights (and the fractional coords of the dense
-    levels); the gathered rows are saved only when the weights need a
-    gradient, which they do not on the Waymo path (``track_linearize_cm``
-    stops gradients to the means).
+    Forward: for each level l, K4 over the level's slice of the table.
+    Where the weights need no gradient, which is every Waymo path
+    (``track_linearize_cm`` stops gradients to the means), that is the fused
+    ``gather.take_wsum_cm``: gather and weighted 8-corner sum in one kernel.
+    Where they do, ``gather.take_cm`` gathers the rows, which are summed in
+    torch and saved for the weights' gradient.  It always saves the corner
+    indices and weights (and the fractional coords of the dense levels).
 
     Backward: one [C, rows] gradient buffer.  The first ``nd`` (dense) levels
     are filled by K2 from the per-sample feature grads, fractional coords
@@ -228,11 +234,14 @@ class _GatherWSum(torch.autograd.Function):
         outs, rows_kept = [], []
         for level in range(spec.num_levels):
             lo, hi = spec.offsets[level], spec.offsets[level + 1]
-            rows = gather.take_cm(t[:, lo:hi], idx[level], bf16=bf16)
-            outs.append((rows * w[level][None]).sum(dim=1))
             if keep_rows:
+                rows = gather.take_cm(t[:, lo:hi], idx[level], bf16=bf16)
+                outs.append((rows * w[level][None]).sum(dim=1))
                 rows_kept.append(rows)
-            del rows
+                del rows
+            else:
+                outs.append(gather.take_wsum_cm(t[:, lo:hi], idx[level],
+                                                w[level], bf16=bf16))
         ctx.save_for_backward(idx, w, frac, *rows_kept)
         ctx.spec, ctx.nd, ctx.value_dtype = spec, nd, value_dtype
         return torch.stack(outs)
@@ -286,10 +295,10 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
     (``hex_single_query``): one lookup per sample at the hex-mean position,
     modulated by the mean erf weight over the 6 stds.
 
-    When grad mode is on and the table requires grad, the lookups go through
-    ``_GatherWSum``, whose backward runs the scatter kernels; otherwise each
-    level is gathered and summed on its own (the render path: one K4 launch
-    per level either way).
+    When grad mode is on and the table or the positions require grad, the
+    lookups go through ``_GatherWSum``, whose backward runs the scatter
+    kernels; otherwise (the render path) each level is one
+    ``gather.take_wsum_cm``.  One K4 launch per level either way.
 
     Args:
       x01: [3, H, M] unit-cube coordinates (H = 6 or 1); points outside
@@ -322,7 +331,8 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
     if bwd_value_dtype is not None and c_dim % 2:
         raise ValueError(f"bwd_value_dtype needs an even level_dim, got "
                          f"{c_dim}")
-    fused = torch.is_grad_enabled() and table.requires_grad
+    fused = torch.is_grad_enabled() and (table.requires_grad
+                                         or x01.requires_grad)
     nd = spec.dense_prefix if bwd_dense_sample else 0
 
     oob = ((x01 < 0) | (x01 > 1)).any(dim=0)  # [H, M]
@@ -345,10 +355,11 @@ def encode_hex_cm(x01, stds, table, spec: HashGridSpec, grid_sizes=None,
                 frac_parts.append(frac.detach().reshape(3, hex_n * m))
             continue
         lo, hi = spec.offsets[level], spec.offsets[level + 1]
-        rows = gather.take_cm(table[:, lo:hi], idx,
-                              bf16=gather_bf16)  # [C, 8, H, M]
-        acc_levels.append((rows * w[None]).sum(dim=1))  # [C, H, M]
-        del rows, idx, w
+        acc_levels.append(gather.take_wsum_cm(
+            table[:, lo:hi], idx.reshape(8, hex_n * m),
+            w.reshape(8, hex_n * m),
+            bf16=gather_bf16).reshape(c_dim, hex_n, m))
+        del idx, w
 
     if fused:
         frac_lvl = (torch.stack(frac_parts) if nd else

@@ -15,10 +15,12 @@ that are sorted each on its own and summed in chunk order.
 
 On a CUDA tensor they sort their keys with a stable ``torch.sort``, find each
 key's run with ``torch.searchsorted`` (``sort_rows``; the JAX package sorts
-with ``lax.sort`` outside its kernel too; K5 searches inside its kernel),
-and launch the hand-written kernels in ``csrc/scatter.cu`` and
-``csrc/scatter_chunked.cu``, which sum every output row in a fixed order:
-the result is bitwise the same on every launch, with no float atomics.  On a
+with ``lax.sort`` outside its kernel too; K5 sorts its chunks with one
+batched ``torch.sort``, ``sort_chunks``, and finds each row tile's range of
+every chunk inside its kernel), and launch the hand-written kernels in
+``csrc/scatter.cu`` and ``csrc/scatter_chunked.cu``, which sum every output
+row in an order fixed by the data: the result is bitwise the same on every
+launch, with no float atomics.  On a
 CPU tensor they run the plain PyTorch versions (``index_add_``), which the
 CPU tests compare against the Pallas kernels in interpret mode.  A tensor on
 another device raises.
@@ -154,7 +156,7 @@ def _bind_chunked(lib):
     ll, vp = ctypes.c_longlong, ctypes.c_void_p
     chunked = lib.ucnerf_chunked_sum_cm
     chunked.argtypes = [vp, ll, vp, vp, ctypes.c_int, ll, ll, vp, ll,
-                        ctypes.c_int, vp, vp, vp]
+                        ctypes.c_int, vp]
     chunked.restype = ctypes.c_int
     return chunked
 
@@ -405,7 +407,9 @@ def sort_chunks(keys, num_chunks: int):
 
 def chunked_sum_cm(values, sorted_keys, perm, num_chunks: int, out):
     """Launch K5 on prepared chunk-local sorts (``sort_chunks``): every row
-    of out gets the sum of its updates, chunk by chunk in chunk order."""
+    of out gets the sum of its updates, chunk by chunk in chunk order.  One
+    block per tile of 1024 rows keeps the tile's sums in shared memory and
+    walks the tile's range of each chunk's sorted keys."""
     _check_cuda("chunked_sum_cm", values, sorted_keys, perm, out)
     c, m = values.shape
     rows = out.shape[1]
@@ -420,14 +424,13 @@ def chunked_sum_cm(values, sorted_keys, perm, num_chunks: int, out):
         raise ValueError(f"{c} channels: the kernels take 1, 2, 3, 4 or 8")
     if rows == 0:
         return out
-    long_rows, long_count = _long_row_scratch(rows, m, values.device)
     with torch.cuda.device(values.device):
         chunked = _bind_chunked(build.load("scatter_chunked"))
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = chunked(values.data_ptr(), values.stride(0),
                       sorted_keys.data_ptr(), perm.data_ptr(), num_chunks,
                       m // num_chunks, rows, out.data_ptr(), out.stride(0),
-                      c, long_rows.data_ptr(), long_count.data_ptr(), stream)
+                      c, stream)
     if err != 0:
         raise RuntimeError(f"chunked scatter kernel launch failed: "
                            f"cudaError {err}")
@@ -440,9 +443,10 @@ def scatter_add_chunked_cm(values, idx, num_rows: int, *, num_chunks: int):
 
     The stream is cut into ``num_chunks`` equal contiguous chunks, each
     sorted on its own (one batched ``torch.sort``), and every output row
-    sums its updates chunk by chunk in chunk order.  The kernel finds each
-    row's run inside each chunk with a binary search of the chunk's sorted
-    keys, so no ``[num_chunks, num_rows]`` table of run starts is stored.
+    sums its updates chunk by chunk in chunk order.  The kernel finds where
+    each tile of 1024 rows lies in each chunk with one binary-search pair per
+    (tile, chunk) and then walks the keys, so no ``[num_chunks, num_rows]``
+    table of run starts is stored and no row searches for itself.
 
     Args:
       values: [C, M] float32 updates, M divisible by num_chunks.
