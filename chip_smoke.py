@@ -12,12 +12,15 @@ Phases:
      shapes the main paths give it (K4's two entry points at a render
      chunk's proposal level: ``take_cm`` bitwise, and the fused
      ``take_wsum_cm`` within 8 ulp of the summed magnitudes and bitwise
-     ``take_cm`` for one-hot weights; K1, K2 and K3 at one training
-     microbatch of each grid, with a skewed row of 1e5 updates; K5, which no
-     path calls, at the NeRF grid's hashed stream in 1 and 24 chunks and on
-     a small stream of corner cases), check that the scatters are bitwise
-     deterministic, and time kernel, plain version and the nearest PyTorch
-     call;
+     ``take_cm`` for one-hot weights; K1's two entry points, K2 and K3 at
+     one training microbatch of each grid, with a skewed row of 1e5
+     updates: the fused ``scatter_add_wsum_cm``, which the f32 step
+     launches, bitwise ``segment_sum_cm`` on the torch-formed w*g, K3
+     bitwise K1 on the bf16-rounded updates, the run-starts pass bitwise
+     searchsorted; K5, which no path calls, at the NeRF grid's hashed stream
+     in 1 and 24 chunks and on a small stream of corner cases), check that
+     the scatters are bitwise deterministic, and time kernel, prep, plain
+     version and the nearest PyTorch call, with the walk lengths;
   4. render phase: render 2 views of 480x320 through ``render_image`` with
      the canonical Waymo model (``configs.waymo()``, full width, random
      weights from a seed), count the kernel launches of that run, check the
@@ -27,11 +30,16 @@ Phases:
      level and to a NeRF level (neighbouring samples share rows there; the
      kernel phase's uniform stream is the worst case);
   5. gradient check: one 64-ray training microbatch on the card against
-     the same model on the CPU (plain versions of every kernel);
+     the same model on the CPU (plain versions of every kernel); then the
+     real-stream phase: K1's fused entry and K2 held, timed and their walk
+     lengths read on what one training microbatch's f32 backward hands
+     them at each grid;
   6. training phase: one warm-up and 5 timed steps of
      ``configs.waymo(lr_delay_steps=0)`` (15000 rays in 10 microbatches,
      Adam) on a fixed batch drawn from the two views; check the losses, the
-     updates, the table gradients and the launches of K1, K2 and K4;
+     updates, the table gradients and the launches: 20 K1 (all through the
+     fused entry, so no [C, 8 N L] values are built), 20 K2, 160 K4 and 40
+     run-starts passes a step;
   7. bf16 training phase: the same model from the same initial state with
      ``grid_bwd_value_dtype='bfloat16'`` on both fields, one warm-up and 2
      timed steps; K3 takes K1's place (20 K3, 20 K2, 160 K4 and no K1 launch
@@ -373,15 +381,73 @@ def check_scatter(torch, label, run, want64):
     return float(err.max())
 
 
+def dense_walks(torch, starts, level_offsets, strides):
+    """Each dense row's K2 walk: the sum of its 8 corner runs."""
+    runs = (starts[1:] - starts[:-1]).long()
+    walks = torch.zeros_like(runs)
+    for l, s in enumerate(strides):
+        lo, hi = level_offsets[l], level_offsets[l + 1]
+        for k in range(8):
+            off = (k & 1) + ((k >> 1) & 1) * s + ((k >> 2) & 1) * s * s
+            if off < hi - lo:
+                walks[lo + off:hi] += runs[lo:hi - off]
+    return walks
+
+
+def walk_stats(torch, walks, tiers):
+    """Percentiles of the rows' walk lengths, and the share of rows and of
+    the walked updates that each tier (thread, warp, block) takes."""
+    srt = torch.sort(walks.long()).values
+    n = srt.numel()
+    pct = {f"p{q:g}": int(srt[min(n - 1, int(q / 100 * (n - 1)))])
+           for q in (50, 90, 99, 99.9)}
+    thread, warp = tiers
+    total = max(int(srt.sum()), 1)
+    share = {}
+    for tier, sel in (("thread", srt <= thread),
+                      ("warp", (srt > thread) & (srt <= warp)),
+                      ("block", srt > warp)):
+        share[tier] = {"rows": float(sel.float().mean()),
+                       "walk": int(srt[sel].sum()) / total}
+    return dict(pct, max=int(srt[-1]), mean=float(srt.double().mean()),
+                rows=n, tiers=share)
+
+
+def fmt_walks(st):
+    return (f"walks p50/p90/p99/p99.9/max {st['p50']}/{st['p90']}/"
+            f"{st['p99']}/{st['p99.9']}/{st['max']} (mean {st['mean']:.2f}), "
+            f"rows by tier thread/warp/block "
+            f"{st['tiers']['thread']['rows']:.4f}/"
+            f"{st['tiers']['warp']['rows']:.4f}/"
+            f"{st['tiers']['block']['rows']:.4f}")
+
+
+def check_run_starts(torch, scatter):
+    """run_starts against searchsorted, bitwise, where the big streams do not
+    reach: no keys, long gaps (filled by a warp), keys on the first and last
+    rows, one key."""
+    dev = torch.device("cuda")
+    rows = 1 << 20
+    for keys in ([], [0], [rows - 1], [5, 5, 100_000, 100_001, rows - 1],
+                 list(range(0, rows, 33)), [7] * 1000 + [70_000] * 3):
+        k = torch.tensor(keys, dtype=torch.int32, device=dev)
+        check(torch.equal(scatter.run_starts(k, rows),
+                          scatter.run_starts_plain(k, rows)),
+              f"run_starts differs from searchsorted on {len(keys)} keys")
+
+
 def scatter_phase(torch, scatter, hashgrid, configs):
     """K1, K2 and K3 at the shapes of one training microbatch of each grid,
     and K5 at the NeRF grid's hashed stream."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     c = 4
-    k1, k2, k3 = ({"ms": 0.0, "prep_ms": 0.0, "plain_ms": 0.0,
-                   "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-                   "per_call": []} for _ in range(3))
+    check_run_starts(torch, scatter)
+    k1, k1p, k2, k3 = ({"ms": 0.0, "prep_ms": 0.0, "plain_ms": 0.0,
+                        "library_ms": 0.0, "bound_ms": 0.0,
+                        "max_abs_err": 0.0, "per_call": []}
+                       for _ in range(4))
+    k1.update(torch_sequence_ms=0.0, run_starts_ms=0.0, searchsorted_ms=0.0)
     k3.update(pack_ms=0.0, pack_bound_ms=0.0)
     for name, spec, hm in grid_specs(configs, hashgrid):
         nd = spec.dense_prefix
@@ -424,6 +490,15 @@ def scatter_phase(torch, scatter, hashgrid, configs):
             "bound_ms": (m * (8 + 4 * c) + (hashed_rows + 1) * 4
                          + hashed_rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
             "max_abs_err": err}
+        # K1's fused entry on the same keys, as the f32 step launches it:
+        # per-level feature grads and corner weights in [0, 1).
+        lh = spec.num_levels - nd
+        g = torch.randn((lh, c, hm), generator=gen, device=dev)
+        w = torch.rand((lh, 8, hm), generator=gen, device=dev)
+        callw = wsum_call(torch, scatter, f"K1 fused {name}", g, w, idx,
+                          hashed_rows)
+        callw["grid"] = name
+        del g, w
         # K3 on the same stream: the updates rounded to bf16 and packed.
         rounded = values.to(torch.bfloat16).float()
         packed = scatter.pack_bf16_pairs(values)
@@ -482,70 +557,21 @@ def scatter_phase(torch, scatter, hashgrid, configs):
         md = base.numel()
         g = torch.randn((c, md), generator=gen, device=dev)
         fr = torch.rand((3, md), generator=gen, device=dev)
-        outd = torch.empty((c, dense_rows), device=dev)
-        kw = dict(level_len=hm, strides=spec.dense_strides)
-        perm, starts = scatter.sort_rows(base, dense_rows)
-        want64 = scatter.scatter_add_dense_cm_plain(g.double(), fr, base,
-                                                    dense_rows, **kw)
-        errd = max(
-            check_scatter(torch, f"K2 {name} (wrapper)",
-                          lambda: scatter.scatter_add_dense_cm(
-                              g, fr, base, dense_rows, out=outd,
-                              level_offsets=spec.offsets[:nd + 1], **kw),
-                          want64),
-            check_scatter(torch, f"K2 {name}",
-                          lambda: scatter.dense_sum_cm(
-                              g, fr, perm, starts, spec.offsets[:nd + 1],
-                              spec.dense_strides, outd), want64))
-        del want64
-        # The library yardstick: index_add_ over the corner-expanded updates.
-        frb = fr.to(torch.bfloat16).float()
-        vals8, idx8 = [], []
-        for l, s in enumerate(spec.dense_strides):
-            sl = slice(l * hm, (l + 1) * hm)
-            for corner in range(8):
-                off = ((corner & 1) + ((corner >> 1) & 1) * s
-                       + ((corner >> 2) & 1) * s * s)
-                vals8.append(scatter._dense_weights(frb[:, sl], corner)
-                             * g[:, sl])
-                idx8.append(base[sl].long() + off)
-        vals8, idx8 = torch.cat(vals8, dim=1), torch.cat(idx8)
-        calld = {
-            "grid": name, "M": md, "rows": dense_rows,
-            "ms": time_ms(lambda: scatter.dense_sum_cm(
-                g, fr, perm, starts, spec.offsets[:nd + 1],
-                spec.dense_strides, outd), torch),
-            "prep_ms": time_ms(lambda: scatter.sort_rows(base, dense_rows),
-                               torch),
-            "plain_ms": time_ms(lambda: scatter.scatter_add_dense_cm_plain(
-                g, fr, base, dense_rows, out=outd, **kw), torch),
-            "library_ms": time_ms(lambda: outd.zero_().index_add_(
-                1, idx8, vals8), torch),
-            "bound_ms": (md * (8 + 12 + 4 * c) + (dense_rows + 1) * 4
-                         + dense_rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
-            "max_abs_err": errd}
-        del g, fr, outd, perm, starts, base, vals8, idx8, frb
-        for entry, rec in ((k1, call), (k2, calld), (k3, callp)):
-            entry["per_call"].append(rec)
-            for k in ("ms", "prep_ms", "plain_ms", "library_ms", "bound_ms",
-                      "pack_ms", "pack_bound_ms"):
-                if k in rec:
-                    entry[k] += rec[k]
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       rec["max_abs_err"])
+        calld = dense_call(torch, scatter, f"K2 {name}", g, fr, base,
+                           spec.offsets[:nd + 1], spec.dense_strides, hm)
+        calld["grid"] = name
+        del g, fr, base
+        add_calls(((k1, callw), (k1p, call), (k2, calld), (k3, callp)))
+        print_scatter(f"K1 fused {name}", callw)
         for label, rec in (("K1", call), ("K2", calld), ("K3", callp)):
-            pack = (f"pack {rec['pack_ms']:.4f} (bound "
-                    f"{rec['pack_bound_ms']:.4f}), " if "pack_ms" in rec
-                    else "")
-            print(f"[kernel] {label} {name} M={rec['M']} rows={rec['rows']}: "
-                  f"{rec['ms']:.4f} ms ({pack}prep {rec['prep_ms']:.4f}, "
-                  f"plain {rec['plain_ms']:.4f}, index_add_ "
-                  f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}), "
-                  f"max abs err {rec['max_abs_err']:.3g}", flush=True)
+            print_scatter(f"{label} {name}", rec)
     torch.cuda.empty_cache()
-    k1.update(name="scatter_add_cm (hashed-level table gradient, K1)",
+    k1.update(name="scatter_add_wsum_cm / scatter_add_cm (hashed-level "
+              "table gradient, K1; the fused entry, which the f32 step "
+              "launches, forms w*g in the kernel)",
               route="cuda", source="ucnerf_tpu_torch/csrc/scatter.cu",
-              replaces="ucnerf_tpu/ops/scatter.py:127", bound_by="bytes")
+              replaces="ucnerf_tpu/ops/scatter.py:127", bound_by="bytes",
+              scatter_add_cm=k1p)
     k2.update(name="scatter_add_dense_cm (dense-level table gradient, K2)",
               route="cuda", source="ucnerf_tpu_torch/csrc/scatter.cu",
               replaces="ucnerf_tpu/ops/scatter.py:604", bound_by="bytes")
@@ -554,6 +580,155 @@ def scatter_phase(torch, scatter, hashgrid, configs):
               source="ucnerf_tpu_torch/csrc/scatter.cu",
               replaces="ucnerf_tpu/ops/scatter.py:406", bound_by="bytes")
     return k1, k2, k3, k5
+
+
+def wsum_call(torch, scatter, label, g, w, keys, rows):
+    """K1's fused entry on (g, w, keys): through its wrapper and its launch
+    half against the float64 plain version, bitwise across launches and
+    against K1 on the torch-formed w*g; times, bound and walk lengths."""
+    out = torch.empty((g.shape[1], rows), device=g.device)
+    perm, starts = scatter.sort_rows(keys, rows)
+    want64 = scatter.scatter_add_wsum_cm_plain(g.double(), w.double(), keys,
+                                               rows)
+    err = max(
+        check_scatter(torch, f"{label} (wrapper)",
+                      lambda: scatter.scatter_add_wsum_cm(g, w, keys, rows,
+                                                          out=out), want64),
+        check_scatter(torch, label,
+                      lambda: scatter.wsum_sum_cm(g, w, perm, starts, out),
+                      want64))
+    del want64
+    rec = wsum_times(torch, scatter, g, w, keys, perm, starts, out)
+    rec.update(max_abs_err=err, walks=walk_stats(
+        torch, starts[1:] - starts[:-1], scatter.RUN_TIERS))
+    return rec
+
+
+def dense_call(torch, scatter, label, g, fr, base, level_offsets, strides,
+               level_len):
+    """K2 on (g, fr, base): through its wrapper and its launch half against
+    the float64 plain version, bitwise across launches; times against
+    index_add_ over the corner-expanded updates, bound and walk lengths."""
+    c, md = g.shape
+    rows = level_offsets[-1]
+    out = torch.empty((c, rows), device=g.device)
+    kw = dict(level_len=level_len, strides=strides)
+    perm, starts = scatter.sort_rows(base, rows)
+    want64 = scatter.scatter_add_dense_cm_plain(g.double(), fr, base, rows,
+                                                **kw)
+    err = max(
+        check_scatter(torch, f"{label} (wrapper)",
+                      lambda: scatter.scatter_add_dense_cm(
+                          g, fr, base, rows, out=out,
+                          level_offsets=level_offsets, **kw), want64),
+        check_scatter(torch, label,
+                      lambda: scatter.dense_sum_cm(
+                          g, fr, perm, starts, level_offsets, strides, out),
+                      want64))
+    del want64
+    # The library yardstick: index_add_ over the corner-expanded updates.
+    frb = fr.to(torch.bfloat16).float()
+    vals8, idx8 = [], []
+    for l, s in enumerate(strides):
+        sl = slice(l * level_len, (l + 1) * level_len)
+        for corner in range(8):
+            off = ((corner & 1) + ((corner >> 1) & 1) * s
+                   + ((corner >> 2) & 1) * s * s)
+            vals8.append(scatter._dense_weights(frb[:, sl], corner)
+                         * g[:, sl])
+            idx8.append(base[sl].long() + off)
+    vals8, idx8 = torch.cat(vals8, dim=1), torch.cat(idx8)
+    rec = {
+        "M": md, "rows": rows,
+        "ms": time_ms(lambda: scatter.dense_sum_cm(
+            g, fr, perm, starts, level_offsets, strides, out), torch),
+        "prep_ms": time_ms(lambda: scatter.sort_rows(base, rows), torch),
+        "plain_ms": time_ms(lambda: scatter.scatter_add_dense_cm_plain(
+            g, fr, base, rows, out=out, **kw), torch),
+        "library_ms": time_ms(lambda: out.zero_().index_add_(
+            1, idx8, vals8), torch),
+        "bound_ms": (md * (8 + 12 + 4 * c) + (rows + 1) * 4
+                     + rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err,
+        "walks": walk_stats(torch, dense_walks(torch, starts, level_offsets,
+                                               strides),
+                            scatter.DENSE_TIERS)}
+    del vals8, idx8, frb
+    return rec
+
+
+def wsum_times(torch, scatter, g, w, keys, perm, starts, out):
+    """Times of K1's fused entry on a prepared sort, of its prep (stable sort
+    and run starts, and each apart, beside searchsorted), of the torch
+    sequence it replaces (multiply, transpose copy, K1), of its plain
+    version and of index_add_ on the formed updates; and its bound.  Checks
+    that it is K1 on the torch-formed w*g, bit for bit."""
+    formed = scatter._wsum_values(g, w)
+    check(torch.equal(scatter.wsum_sum_cm(g, w, perm, starts, out),
+                      scatter.segment_sum_cm(formed, perm, starts,
+                                             torch.empty_like(out))),
+          "K1's fused entry differs from K1 on the torch-formed w*g")
+    levels, c, n = g.shape
+    m, rows = keys.numel(), out.shape[1]
+    sorted_keys = torch.sort(keys, stable=True).values
+    check(torch.equal(scatter.run_starts(sorted_keys, rows), starts),
+          "run_starts differs from the prepared starts")
+    check(torch.equal(scatter.run_starts_plain(sorted_keys, rows), starts),
+          "run_starts differs from searchsorted")
+    keys64 = keys.long()
+    rec = {
+        "M": m, "rows": rows,
+        "ms": time_ms(lambda: scatter.wsum_sum_cm(g, w, perm, starts, out),
+                      torch),
+        "prep_ms": time_ms(lambda: scatter.sort_rows(keys, rows), torch),
+        "sort_ms": time_ms(lambda: torch.sort(keys, stable=True), torch),
+        "run_starts_ms": time_ms(lambda: scatter.run_starts(sorted_keys,
+                                                            rows), torch),
+        "searchsorted_ms": time_ms(lambda: scatter.run_starts_plain(
+            sorted_keys, rows), torch),
+        "torch_sequence_ms": time_ms(lambda: scatter.segment_sum_cm(
+            scatter._wsum_values(g, w), perm, starts, out), torch),
+        "plain_ms": time_ms(lambda: scatter.scatter_add_wsum_cm_plain(
+            g, w, keys, rows, out), torch),
+        "library_ms": time_ms(lambda: out.zero_().index_add_(1, keys64,
+                                                             formed), torch),
+        # perm and weight per update, the grads once, run starts, output.
+        "bound_ms": (m * (8 + 4) + levels * n * 4 * c + (rows + 1) * 4
+                     + rows * 4 * c) / HBM_BYTES_PER_S * 1e3}
+    del formed, keys64
+    return rec
+
+
+def add_calls(pairs):
+    """Adds each call's times into its kernel's totals over the grids."""
+    for entry, rec in pairs:
+        entry["per_call"].append(rec)
+        for k in ("ms", "prep_ms", "plain_ms", "library_ms", "bound_ms",
+                  "pack_ms", "pack_bound_ms", "torch_sequence_ms",
+                  "run_starts_ms", "searchsorted_ms"):
+            if k in rec and k in entry:
+                entry[k] += rec[k]
+        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+
+
+def print_scatter(label, rec):
+    extra = ""
+    if "pack_ms" in rec:
+        extra = (f"pack {rec['pack_ms']:.4f} (bound "
+                 f"{rec['pack_bound_ms']:.4f}), ")
+    if "torch_sequence_ms" in rec:
+        extra = (f"multiply + transpose copy + K1 "
+                 f"{rec['torch_sequence_ms']:.4f}, sort "
+                 f"{rec['sort_ms']:.4f} + run starts "
+                 f"{rec['run_starts_ms']:.4f} (searchsorted "
+                 f"{rec['searchsorted_ms']:.4f}), ")
+    print(f"[kernel] {label} M={rec['M']} rows={rec['rows']}: "
+          f"{rec['ms']:.4f} ms ({extra}prep {rec['prep_ms']:.4f}, "
+          f"plain {rec['plain_ms']:.4f}, index_add_ "
+          f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}), "
+          f"max abs err {rec['max_abs_err']:.3g}"
+          + (f"; {fmt_walks(rec['walks'])}" if "walks" in rec else ""),
+          flush=True)
 
 
 def chunked_corner_cases(torch, scatter):
@@ -712,7 +887,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
     check(launches == levels * chunks,
           f"K4 launched {launches} times, expected {levels} per chunk "
           f"x {chunks} chunks")
-    check(sum(by_kernel.values()) == launches,
+    check(all(n == 0 for k, n in by_kernel.items() if k != "K4"),
           f"a render launched a backward kernel: {by_kernel}")
     for out in outs:
         check(out["rgb"].shape == (VIEW_H, VIEW_W, 3),
@@ -829,6 +1004,73 @@ def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
         k4["interleave_per_encode"].append(rec)
 
 
+def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
+                      batch, k1, k2):
+    """K1's fused entry and K2 on what the f32 backward of one training
+    microbatch hands them, for each grid: the feature grads, corner weights
+    and keys of the hashed levels, and the feature grads, fractional coords
+    and corner-0 rows of the dense levels.  Recorded from the encoder's own
+    calls; the uniform stream of the kernel phase is the worst case for the
+    reads, not for the skew, so the walk lengths are reported too."""
+    wsum, dense = {}, {}
+
+    def wsum_recorder(g, w, keys, num_rows, out=None):
+        wsum.setdefault(num_rows, (g.clone(), w.clone(), keys.clone()))
+        return scatter.scatter_add_wsum_cm(g, w, keys, num_rows, out=out)
+
+    def dense_recorder(gvals, fracs, base_idx, num_rows, **kw):
+        dense.setdefault(gvals.shape[1], (
+            gvals.clone(), fracs.clone(), base_idx.clone(),
+            tuple(kw["level_offsets"]), tuple(kw["strides"]),
+            kw["level_len"]))
+        return scatter.scatter_add_dense_cm(gvals, fracs, base_idx, num_rows,
+                                            **kw)
+
+    n = cfg.batch_size // cfg.microbatches
+    part = {k: v[:n] for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    # The encoder reaches the kernels through its module's `scatter` name.
+    hashgrid.scatter = types.SimpleNamespace(
+        scatter_add_wsum_cm=wsum_recorder,
+        scatter_add_dense_cm=dense_recorder,
+        scatter_add_packed_cm=scatter.scatter_add_packed_cm)
+    try:
+        renderings, history = model(part, 0.5, None, compute_extras=False,
+                                    train=True, generator=gen)
+        total, _, _ = losses_lib.compute_all_losses(part, renderings,
+                                                    history, cfg)
+        total.backward()
+        del renderings, history, total
+    finally:
+        hashgrid.scatter = scatter
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    check(len(wsum) == 2 and len(dense) == 2,
+          f"one microbatch's backward gave the fused K1 entry {len(wsum)} "
+          f"and K2 {len(dense)} distinct calls; expected one per grid")
+    res = {"K1": [], "K2": []}
+    # The proposal grid's hashed region is the smaller, its dense stream the
+    # longer (128 samples a ray against the NeRF field's 32).
+    for grid, rows in zip(("proposal", "nerf"), sorted(wsum)):
+        g, w, keys = wsum.pop(rows)
+        rec = wsum_call(torch, scatter, f"K1 fused real {grid}", g, w, keys,
+                        rows)
+        rec["grid"] = grid
+        print_scatter(f"K1 fused real {grid}", rec)
+        res["K1"].append(rec)
+        del g, w, keys
+    for grid, md in zip(("nerf", "proposal"), sorted(dense)):
+        g, fr, base, offsets, strides, level_len = dense.pop(md)
+        rec = dense_call(torch, scatter, f"K2 real {grid}", g, fr, base,
+                         offsets, strides, level_len)
+        rec["grid"] = grid
+        print_scatter(f"K2 real {grid}", rec)
+        res["K2"].append(rec)
+        del g, fr, base
+    torch.cuda.empty_cache()
+    k1["real_stream"], k2["real_stream"] = res["K1"], res["K2"]
+
+
 def train_batch(views, cfg, n, seed):
     """n rays drawn without replacement from the views, with targets made
     with numpy: a smooth colour of the view direction, sky where it points
@@ -850,18 +1092,26 @@ def reset_launches(gather, scatter):
     gather.take_cm.launches = 0
     gather.take_wsum_cm.launches = 0
     scatter.scatter_add_cm.launches = 0
+    scatter.scatter_add_wsum_cm.launches = 0
     scatter.scatter_add_dense_cm.launches = 0
     scatter.scatter_add_packed_cm.launches = 0
     scatter.scatter_add_chunked_cm.launches = 0
+    scatter.run_starts.launches = 0
 
 
 def read_launches(gather, scatter):
-    return {"K1": scatter.scatter_add_cm.launches,
+    """Launches by kernel; K1 and K4 are each one kernel family with two
+    entry points, also counted apart; "starts" is the run-starts pass that
+    every sort of K1, K2 and K3 ends with."""
+    return {"K1": (scatter.scatter_add_cm.launches
+                   + scatter.scatter_add_wsum_cm.launches),
+            "K1_fused": scatter.scatter_add_wsum_cm.launches,
+            "K1_plain": scatter.scatter_add_cm.launches,
             "K2": scatter.scatter_add_dense_cm.launches,
             "K3": scatter.scatter_add_packed_cm.launches,
-            # K4 is one kernel family with two entry points.
             "K4": gather.take_cm.launches + gather.take_wsum_cm.launches,
-            "K5": scatter.scatter_add_chunked_cm.launches}
+            "K5": scatter.scatter_add_chunked_cm.launches,
+            "starts": scatter.run_starts.launches}
 
 
 # K4's launches on the main paths by entry point, summed over the paths.
@@ -926,10 +1176,15 @@ def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
     no_grad = [n for n, p in model.named_parameters()
                if n.endswith(".table") and not bool(p.grad.abs().max() > 0)]
     check(not no_grad, f"{label}: tables with a zero gradient: {no_grad}")
+    # Per microbatch: one proposal and one NeRF field, each with a hashed and
+    # a dense part of the table gradient.  K1 launches only through its
+    # fused entry, so no [C, 8 N L] values tensor is built (K1_plain 0).
     hashed = 2 * cfg.microbatches
-    per_step = {"K1": 0 if bf16 else hashed, "K2": 2 * cfg.microbatches,
-                "K3": hashed if bf16 else 0, "K4": 16 * cfg.microbatches,
-                "K5": 0}
+    per_step = {"K1": 0 if bf16 else hashed,
+                "K1_fused": 0 if bf16 else hashed, "K1_plain": 0,
+                "K2": 2 * cfg.microbatches, "K3": hashed if bf16 else 0,
+                "K4": 16 * cfg.microbatches, "K5": 0,
+                "starts": hashed + 2 * cfg.microbatches}
     for k, n in per_step.items():
         check(launches[k] == n * steps,
               f"{label}: {k} launched {launches[k]} times in {steps} steps, "
@@ -1055,6 +1310,7 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size):
                   f"CLI: checkpoints {kept}, expected [{max_steps}]")
             check(launches["K3"] == steps * microbatches * 2
                   and launches["K2"] == steps * microbatches * 2
+                  and launches["starts"] == steps * microbatches * 4
                   and launches["K1"] == 0,
                   f"CLI: launches {launches} in {steps} steps of "
                   f"{microbatches} microbatches")
@@ -1173,17 +1429,26 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     bf16 = cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
+    # Kernels by the template argument or name that marks them: K1's fused
+    # entry (its walks and the grads' interleave), K2 (walks and the two
+    # record passes), K3, the prep of all three (the stable sort and the
+    # run starts), K4.
     write_profile(torch, prof, wall_us, path,
                   f"one training step of {batch['origins'].shape[0]} rays"
                   + (" (bf16 backward)" if bf16 else ""),
-                  ("rows_kernel", "long_rows_kernel", "RadixSort",
-                   "searchsorted", "take_wsum_kernel", "take_kernel",
-                   "interleave_kernel"))
+                  {"K1": ("WeightedRows", "interleave_grads_kernel"),
+                   "K2": ("DenseWalk", "dense_pack_kernel",
+                          "gather_records_kernel"),
+                   "K3": ("Bf16Pairs",),
+                   "prep": ("RadixSort", "run_starts_kernel"),
+                   "K4": ("take_wsum_kernel", "take_kernel",
+                          "interleave_kernel<")})
 
 
 def write_profile(torch, prof, wall_us, path, what, names):
-    """Device kernels of a profile by time, with the listed kernels' sums
-    and the device's busy share of the wall time."""
+    """Device kernels of a profile by time, with the device's busy share of
+    the wall time and, for each label of `names`, the sum over the kernels
+    whose names hold one of its patterns."""
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -1191,7 +1456,9 @@ def write_profile(torch, prof, wall_us, path, what, names):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
     device_us = sum(dev_us(e) for e in events)
-    named = {n: sum(dev_us(e) for e in events if n in e.key) for n in names}
+    named = {label: sum(dev_us(e) for e in events
+                        if any(p in e.key for p in patterns))
+             for label, patterns in names.items()}
     top = sorted(events, key=dev_us, reverse=True)[:40]
     with open(path, "w") as f:
         f.write(f"{what}: wall {wall_us:.1f} us, device {device_us:.1f} us, "
@@ -1222,7 +1489,9 @@ def profile_chunk(torch, eval_step, view, cfg, path):
         wall_us = (time.perf_counter() - t0) * 1e6
     write_profile(torch, prof, wall_us, path,
                   f"one chunk of {cfg.render_chunk_size} rays",
-                  ("take_wsum_kernel", "take_kernel", "interleave_kernel"))
+                  {"take_wsum_kernel": ("take_wsum_kernel",),
+                   "take_kernel": ("take_kernel",),
+                   "interleave_kernel": ("interleave_kernel<",)})
 
 
 def main(argv=None):
@@ -1271,6 +1540,8 @@ def main(argv=None):
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              train_batch(views, train_cfg, TRAIN_RAYS, seed=4).items()}
     grad_res = grad_check_phase(torch, losses_lib, model, train_cfg, batch)
+    real_stream_phase(torch, scatter, hashgrid, losses_lib, model, train_cfg,
+                      batch, k1, k2)
     initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     train_res, f32_grads = train_phase(
         torch, gather, scatter, step, state_lib, model, train_cfg, batch,
@@ -1333,6 +1604,19 @@ def main(argv=None):
         name="take_wsum_cm (K4's fused entry: gather + 8-corner weighted "
              "sum)", route=k4["route"], source=k4["source"],
         replaces=k4["replaces"], launches=k4["launches"])
+    # K1 launches on the paths only through its fused entry: no path builds
+    # the [C, 8 N L] values.  Every sort of K1, K2 and K3 ends with the run
+    # starts pass, held against searchsorted in the kernel phase.
+    k1["launches_by_entry"] = {
+        "scatter_add_wsum_cm": sum(n["K1_fused"] for n in paths.values()),
+        "scatter_add_cm": sum(n["K1_plain"] for n in paths.values())}
+    check(k1["launches_by_entry"]["scatter_add_cm"] == 0,
+          f"K1's plain entry was launched on a path: {k1['launches_by_entry']}")
+    k1["run_starts_launches_by_path"] = {p: n["starts"]
+                                         for p, n in paths.items()}
+    check(all(n["starts"] == n["K1"] + n["K2"] + n["K3"]
+              for n in paths.values()),
+          f"run starts launches differ from the scatters' sorts: {paths}")
     k4["launches_per_chunk"] = slice_res["launches_per_chunk"]
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2")):
         entry["launches_per_step"] = train_res["launches_per_step"][key]

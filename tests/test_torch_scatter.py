@@ -1,6 +1,6 @@
 """The port's hash-grid backward scatters (``ucnerf_tpu_torch/ops/scatter.py``,
-K1, K2, K3, K5 and the partial scatter) and the encoder's table gradient,
-against the JAX package's Pallas kernels in interpret mode.
+K1 and its fused entry, K2, K3, K5 and the partial scatter) and the encoder's
+table gradient, against the JAX package's Pallas kernels in interpret mode.
 
 On the CPU the port runs its plain versions (``index_add_``), which sum in
 f32; the Pallas kernels split each value into two bf16 parts for the MXU
@@ -95,6 +95,93 @@ def test_scatter_add_cm_writes_into_a_column_slice(rng):
     np.add.at(want, (slice(None), idx), vals.astype(np.float64))
     np.testing.assert_allclose(buf[:, 300:].numpy(), want, rtol=1e-5,
                                atol=1e-5)
+
+
+def _wsum_case(rng, c, hex_n, concentrated):
+    """What the encoder's f32 backward hands K1's fused entry: per-level
+    feature grads g [Lh, C, N], corner weights w [Lh, 8, N] and the
+    level-offset corner rows of the hashed levels, N = hex_n * 40 points
+    (inside a 1e-3 cube when concentrated: few rows, long runs)."""
+    _, tspec = _grid()
+    nd = tspec.dense_prefix
+    lo, hi = (0.4, 0.401) if concentrated else (0.0, 1.0)
+    xs = torch.from_numpy(rng.uniform(lo, hi, (3, hex_n, 40)).astype(
+        np.float32))
+    dense_rows = tspec.offsets[nd]
+    idx, w = [], []
+    for level in range(nd, tspec.num_levels):
+        i, wl, _ = thash._level_corners(tspec, level, xs)
+        idx.append((i + (tspec.offsets[level] - dense_rows)).reshape(-1))
+        w.append(wl.reshape(8, -1))
+    w = torch.stack(w)
+    g = rng.normal(size=(w.shape[0], c, w.shape[2])).astype(np.float32)
+    return (g, w.numpy(), torch.cat(idx).numpy(),
+            tspec.table_rows - dense_rows)
+
+
+@pytest.mark.parametrize("c, hex_n, concentrated", [
+    (4, 6, False), (4, 1, False), (2, 6, False), (8, 1, False),
+    (1, 6, False), (4, 6, True), (4, 1, True)])
+def test_scatter_add_wsum_cm_plain_matches_pallas(rng, c, hex_n,
+                                                  concentrated):
+    """K1's fused entry (its plain version on the CPU) against the Pallas K1
+    on the expanded updates w * g, laid out level-major, then corner, then
+    sample, as the JAX encoder builds them."""
+    g, w, keys, rows = _wsum_case(rng, c, hex_n, concentrated)
+    expanded = (w[:, None] * g[:, :, None]).transpose(1, 0, 2, 3).reshape(
+        c, -1)
+    np.testing.assert_array_equal(
+        tscatter._wsum_values(torch.from_numpy(g), torch.from_numpy(w))
+        .numpy(), expanded)
+    got = tscatter.scatter_add_wsum_cm(torch.from_numpy(g),
+                                       torch.from_numpy(w),
+                                       torch.from_numpy(keys), rows)
+    assert got.shape == (c, rows)
+    want = jscatter.scatter_add_cm(jnp.asarray(expanded), jnp.asarray(keys),
+                                   rows, interpret=True)
+    _close(got.numpy(), want)
+    runs = np.bincount(keys, minlength=rows)
+    if concentrated:  # a coarse level's cell takes every point
+        assert runs.max() >= g.shape[2]
+    buf = torch.full((c, rows + 5), 3.0)
+    out = tscatter.scatter_add_wsum_cm(
+        torch.from_numpy(g), torch.from_numpy(w), torch.from_numpy(keys),
+        rows, out=buf[:, 5:])
+    assert out.data_ptr() == buf[:, 5:].data_ptr()
+    np.testing.assert_array_equal(buf[:, :5].numpy(), 3.0)
+    np.testing.assert_array_equal(out.numpy(), got.numpy())
+
+
+def test_run_starts_counts_the_smaller_keys(rng):
+    """starts[r] = the number of keys below r, over sorted keys with runs,
+    gaps, and keys outside [0, rows)."""
+    rows = 300
+    keys = np.sort(np.concatenate([rng.integers(-5, rows + 5, 400),
+                                   np.full(50, 17), np.full(3, rows - 1)])
+                   ).astype(np.int32)
+    got = tscatter.run_starts(torch.from_numpy(keys), rows)
+    assert got.dtype == torch.int32 and got.shape == (rows + 1,)
+    want = np.array([(keys < r).sum() for r in range(rows + 1)])
+    np.testing.assert_array_equal(got.numpy(), want)
+    perm, starts = tscatter.sort_rows(torch.from_numpy(rng.permutation(keys)
+                                                       .clip(0, rows - 1)),
+                                      rows)
+    assert perm.dtype == torch.int64 and starts[-1] == keys.size
+
+
+@pytest.mark.parametrize("tiers", [tscatter.RUN_TIERS, tscatter.DENSE_TIERS])
+def test_tier_lists_hold_every_row_that_passes_a_limit(rng, tiers):
+    """The warp and block lists are sized from the total walk: no more rows
+    than walk // (limit + 1) can pass a limit, on any data."""
+    for runs in (rng.poisson(4.4, 10_000), np.r_[np.zeros(9_999), 10**5],
+                 np.full(500, tiers[0] + 1), np.full(50, tiers[1] + 1)):
+        rows, walk = runs.size, int(runs.sum())
+        lists, warp_cap, counts = tscatter._tier_scratch(
+            rows, walk, tiers, torch.device("cpu"))
+        n_warp = int(((runs > tiers[0]) & (runs <= tiers[1])).sum())
+        n_block = int((runs > tiers[1]).sum())
+        assert n_warp <= warp_cap and n_block <= lists.numel() - warp_cap
+        assert counts.tolist() == [0, 0]
 
 
 def _dense_stream(rng, level_sizes, strides, level_len):
@@ -402,6 +489,71 @@ def test_encode_bf16_backward_matches_pallas(rng, monkeypatch, dense):
         np.testing.assert_array_equal(
             got[:, :tspec.offsets[tspec.dense_prefix]],
             tgrad(None)[:, :tspec.offsets[tspec.dense_prefix]])
+
+
+def _count_scatter_calls(monkeypatch):
+    """Counts of the encoder's calls to the scatter wrappers."""
+    calls = dict.fromkeys(("scatter_add_cm", "scatter_add_wsum_cm",
+                           "scatter_add_packed_cm", "scatter_add_dense_cm"),
+                          0)
+    for name in calls:
+        fn = getattr(tscatter, name)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tscatter, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_encode_backward_takes_the_fused_k1_entry_in_f32(rng, monkeypatch,
+                                                         dense):
+    """The f32 backward fills the hashed levels through K1's fused entry and
+    the bf16 one through K3; neither calls K1's plain entry, so no
+    [C, L*8*N] values are built on the f32 path.  K2 takes the dense levels
+    when asked to.  The f32 table gradient is K1 over the torch-formed
+    updates, bit for bit, on the CPU."""
+    _, tspec = _grid()
+    nd = tspec.dense_prefix if dense else 0
+    x01 = torch.from_numpy(rng.uniform(-0.05, 1.05, (3, 6, 50)).astype(
+        np.float32))
+    stds = torch.from_numpy(rng.uniform(0.01, 0.3, (6, 50)).astype(
+        np.float32))
+    table = rng.normal(0, 0.1, (4, tspec.table_rows)).astype(np.float32)
+    cot = torch.from_numpy(rng.normal(size=(tspec.output_dim, 50)).astype(
+        np.float32))
+    calls = _count_scatter_calls(monkeypatch)
+
+    def grad(value_dtype):
+        tt = torch.from_numpy(table).requires_grad_()
+        feats, _ = thash.encode_hex_cm(x01, stds, tt, tspec,
+                                       bwd_dense_sample=dense,
+                                       bwd_value_dtype=value_dtype)
+        (feats * cot).sum().backward()
+        return tt.grad
+
+    f32 = grad(None)
+    assert calls == {"scatter_add_cm": 0, "scatter_add_wsum_cm": 1,
+                     "scatter_add_packed_cm": 0,
+                     "scatter_add_dense_cm": int(dense)}
+    grad("bfloat16")
+    assert calls == {"scatter_add_cm": 0, "scatter_add_wsum_cm": 1,
+                     "scatter_add_packed_cm": 1,
+                     "scatter_add_dense_cm": 2 * int(dense)}
+
+    # The hashed levels' gradient from K1's plain entry on the same updates.
+    recorded = []
+    fused = tscatter.scatter_add_wsum_cm
+    monkeypatch.setattr(tscatter, "scatter_add_wsum_cm",
+                        lambda g, w, keys, rows, out=None: recorded.append(
+                            (g, w, keys, rows)) or fused(g, w, keys, rows,
+                                                         out=out))
+    np.testing.assert_array_equal(grad(None).numpy(), f32.numpy())
+    g, w, keys, rows = recorded[0]
+    want = tscatter.scatter_add_cm(tscatter._wsum_values(g, w), keys, rows)
+    np.testing.assert_array_equal(f32[:, tspec.offsets[nd]:].numpy(),
+                                  want.numpy())
 
 
 def test_encode_rejects_an_unknown_bwd_value_dtype():

@@ -119,7 +119,8 @@ __global__ void __launch_bounds__(kThreads) chunk_tiles_kernel(
         float acc[C];
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-        sum_run<C, false>(chunk_values, ldv, perm, p, end, 0, 1, acc);
+        sum_run<C, kUnroll>(F32Planes<C>{chunk_values, ldv}, perm, p, end, 0, 1,
+                               acc);
         const int local = static_cast<int>(key - row0);
 #pragma unroll
         for (int c = 0; c < C; ++c) tile[c * kTile + local] += acc[c];
@@ -134,7 +135,8 @@ __global__ void __launch_bounds__(kThreads) chunk_tiles_kernel(
         float acc[C];
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-        sum_run<C, false>(chunk_values, ldv, perm, p, end, tid, kThreads, acc);
+        sum_run<C, kUnroll>(F32Planes<C>{chunk_values, ldv}, perm, p, end, tid,
+                               kThreads, acc);
         block_reduce<C>(acc, red);
         if (tid == 0) {
           const int local = static_cast<int>(key - row0);

@@ -1,6 +1,6 @@
 // Shared pieces of the deterministic table-gradient scatters (scatter.cu,
-// scatter_chunked.cu): the lane-group and block geometry, the walk over one
-// sorted run, and the fixed-order reductions.
+// scatter_chunked.cu): the block geometry, the walk over one sorted run, the
+// sources of update values, and the fixed-order reductions.
 //
 // Every kernel built from these is a GATHER-form reduction with no float
 // atomics: the caller sorts the keys with a stable sort, every run of equal
@@ -8,16 +8,11 @@
 // row is written once, 0 where no update lands.  The result is bitwise the
 // same on every launch.
 //
-// scatter.cu gives each output row a G-lane group: lane j sums positions j,
-// j+G, ... of each run in turn, then the G lanes combine with a fixed
-// xor-shuffle tree.  Rows whose walk is longer than kLong elements (a coarse
-// level's skew: one cell can take 1e5 samples) are not walked by a 4-lane
-// group: the group appends the row to a list (integer atomic; the list's
-// order does not matter), and a second kernel gives each listed row a whole
-// 256-thread block with a fixed block-tree reduction.  Each row's sum is the
-// same whichever block takes it.  scatter_chunked.cu gives each run to the
-// thread on its first key and runs longer than kLong to its whole block, with
-// the same block tree.
+// scatter.cu gives each output row one thread, one warp or one block by the
+// length of its walk (see the note there); scatter_chunked.cu gives each run
+// to the thread on its first key and runs longer than kLong to its whole
+// block.  Warps and blocks combine their lanes with fixed xor-shuffle and
+// block trees.
 
 #pragma once
 
@@ -27,9 +22,8 @@
 
 namespace ucnerf {
 
-constexpr int kGroup = 4;     // lanes per output row in the first pass
-constexpr int kUnroll = 4;    // loads in flight per lane
-constexpr int kLong = 256;    // longer walks go to the block-per-row pass
+constexpr int kUnroll = 4;    // loads in flight per thread (scatter_chunked)
+constexpr int kLong = 256;    // scatter_chunked: longer runs go to the block
 constexpr int kThreads = 256;
 // Blocks of a second pass: 132 SMs, a few blocks each; idle blocks exit after
 // reading the count.
@@ -40,52 +34,91 @@ __device__ __forceinline__ int64_t load_col(const int64_t* p) {
   return static_cast<int64_t>(__ldg(reinterpret_cast<const long long*>(p)));
 }
 
-// Adds values[:, perm[p]] for p = lo + first, lo + first + step, ... < hi.
-//
-// kPacked = false: `values` holds C planes of f32, plane c at values + c * ldv.
-// kPacked = true: it holds C / 2 planes of 32-bit words (same stride), each
-// word a pair of bf16 values: channel c in the high half of plane c's word,
-// channel c + C / 2 in its low half.  The halves are widened to f32 in
-// registers (a bf16 is the high half of an f32) and summed in f32.  The words
-// are handled as uint32_t: a left shift of a negative int is undefined.
-template <int C, bool kPacked>
-__device__ __forceinline__ void sum_run(const float* __restrict__ values,
-                                        int64_t ldv,
+// C contiguous floats, in 16- or 8-byte loads where C allows (p aligned to
+// 4 * C bytes, up to 16).
+template <int C>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         float (&v)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i] = t.x;
+      v[4 * i + 1] = t.y;
+      v[4 * i + 2] = t.z;
+      v[4 * i + 3] = t.w;
+    }
+  } else if constexpr (C % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(p) + i);
+      v[2 * i] = t.x;
+      v[2 * i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = __ldg(p + c);
+  }
+}
+
+// Sources of the update at a column: load(col, v) fills v[C].
+
+// C planes of f32, plane c at values + c * ld (K1, K5).
+template <int C>
+struct F32Planes {
+  const float* __restrict__ values;
+  int64_t ld;
+  __device__ __forceinline__ void load(int64_t col, float (&v)[C]) const {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = __ldg(values + c * ld + col);
+  }
+};
+
+// C / 2 planes of 32-bit words (stride ld), each word a pair of bf16 values:
+// channel c in the high half of plane c's word, channel c + C / 2 in its low
+// half (K3).  The halves are widened to f32 in registers (a bf16 is the high
+// half of an f32).  The words are handled as uint32_t: a left shift of a
+// negative int is undefined.
+template <int C>
+struct Bf16Pairs {
+  const uint32_t* __restrict__ words;
+  int64_t ld;
+  __device__ __forceinline__ void load(int64_t col, float (&v)[C]) const {
+#pragma unroll
+    for (int c = 0; c < C / 2; ++c) {
+      const uint32_t bits = __ldg(words + c * ld + col);
+      v[c] = __uint_as_float(bits & 0xFFFF0000u);
+      v[c + C / 2] = __uint_as_float(bits << 16);
+    }
+  }
+};
+
+// Adds src(perm[p]) for p = lo + first, lo + first + step, ... < hi, kU
+// loads in flight.
+template <int C, int kU, class Src>
+__device__ __forceinline__ void sum_run(const Src& src,
                                         const int64_t* __restrict__ perm,
                                         int64_t lo, int64_t hi, int first,
                                         int step, float (&acc)[C]) {
-  for (int64_t p = lo + first; p < hi; p += static_cast<int64_t>(step) *
-                                             kUnroll) {
-    int64_t col[kUnroll];
+  for (int64_t p = lo + first; p < hi; p += static_cast<int64_t>(step) * kU) {
+    int64_t col[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kU; ++u) {
       const int64_t q = p + static_cast<int64_t>(u) * step;
       col[u] = q < hi ? load_col(perm + q) : -1;
     }
-    float v[kUnroll][C];
-    if constexpr (kPacked) {
-      const uint32_t* words = reinterpret_cast<const uint32_t*>(values);
+    float v[kU][C];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kU; ++u) {
+      if (col[u] >= 0) {
+        src.load(col[u], v[u]);
+      } else {
 #pragma unroll
-        for (int c = 0; c < C / 2; ++c) {
-          const uint32_t bits =
-              col[u] >= 0 ? __ldg(words + c * ldv + col[u]) : 0u;
-          v[u][c] = __uint_as_float(bits & 0xFFFF0000u);
-          v[u][c + C / 2] = __uint_as_float(bits << 16);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          v[u][c] = col[u] >= 0 ? __ldg(values + c * ldv + col[u]) : 0.0f;
-        }
+        for (int c = 0; c < C; ++c) v[u][c] = 0.0f;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kU; ++u) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         if (col[u] >= 0) acc[c] += v[u][c];
@@ -94,13 +127,15 @@ __device__ __forceinline__ void sum_run(const float* __restrict__ values,
   }
 }
 
+// Fixed xor-shuffle tree over the 32 lanes of a warp; every lane ends with
+// the same total.
 template <int C>
-__device__ __forceinline__ void group_reduce(float (&acc)[C]) {
+__device__ __forceinline__ void warp_reduce(float (&acc)[C]) {
 #pragma unroll
-  for (int off = kGroup / 2; off > 0; off >>= 1) {
+  for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off, kGroup);
+      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
     }
   }
 }
@@ -109,13 +144,7 @@ __device__ __forceinline__ void group_reduce(float (&acc)[C]) {
 // Returns the total in thread 0.  `red` holds kThreads / 32 * C floats.
 template <int C>
 __device__ __forceinline__ void block_reduce(float (&acc)[C], float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-    }
-  }
+  warp_reduce<C>(acc);
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll

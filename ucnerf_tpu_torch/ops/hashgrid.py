@@ -16,8 +16,9 @@ lookups run inside ``_GatherWSum``, the counterpart of the JAX
 ``_gather_wsum_ml`` custom VJP: its backward fills the table gradient with
 the scatter kernels, K2
 (``scatter.scatter_add_dense_cm``) for the dense-prefix levels when
-``bwd_dense_sample`` is on and, for the other levels, K1
-(``scatter.scatter_add_cm``) or, with ``bwd_value_dtype='bfloat16'``, K3
+``bwd_dense_sample`` is on and, for the other levels, K1's fused entry
+(``scatter.scatter_add_wsum_cm``, which forms each update ``w * g`` inside
+the kernel) or, with ``bwd_value_dtype='bfloat16'``, K3
 (``scatter.scatter_add_packed_cm``).  ``tv_loss`` and ``level_sq_means``
 have no caller on the ported paths and are not ported.
 """
@@ -216,9 +217,12 @@ class _GatherWSum(torch.autograd.Function):
 
     Backward: one [C, rows] gradient buffer.  The first ``nd`` (dense) levels
     are filled by K2 from the per-sample feature grads, fractional coords
-    and corner-0 rows; the rest from the corner-expanded ``w * g``, by K1 in
-    f32 or, with ``value_dtype='bfloat16'``, by K3 after one bf16 rounding
-    of each update.  Each kernel writes every row of its range, so the
+    and corner-0 rows; the rest from the per-level feature grads and corner
+    weights, by K1's fused entry in f32 (the corner-expanded ``w * g`` is
+    formed inside the kernel and never stored) or, with
+    ``value_dtype='bfloat16'``, by K3 after one bf16 rounding of each update
+    of the corner-expanded ``w * g``.  Each kernel writes every row of its
+    range, so the
     buffer needs no zeroing, and neither the TPU's tile-offset assembly
     (hashgrid.py:292-319) nor its concatenation of parts (:320-343) has a
     counterpart.
@@ -268,16 +272,18 @@ class _GatherWSum(torch.autograd.Function):
                     out=d_table[:, :dense_rows])
             if nd < num_levels:
                 # Level-major, corner, sample: hashgrid.py:302-304.
-                vals = (w[nd:, None] * g[nd:, :, None]).transpose(0, 1)
-                hashed = (scatter.scatter_add_packed_cm
-                          if ctx.value_dtype == "bfloat16"
-                          else scatter.scatter_add_cm)
-                hashed(
-                    vals.reshape(c, -1),
-                    torch.cat([(idx[l] + (offsets[l] - dense_rows))
-                               .reshape(-1) for l in range(nd, num_levels)]),
-                    spec.table_rows - dense_rows,
-                    out=d_table[:, dense_rows:])
+                keys = torch.cat([(idx[l] + (offsets[l] - dense_rows))
+                                  .reshape(-1) for l in range(nd, num_levels)])
+                hashed_rows = spec.table_rows - dense_rows
+                if ctx.value_dtype == "bfloat16":
+                    scatter.scatter_add_packed_cm(
+                        (w[nd:, None] * g[nd:, :, None]).transpose(0, 1)
+                        .reshape(c, -1), keys, hashed_rows,
+                        out=d_table[:, dense_rows:])
+                else:
+                    scatter.scatter_add_wsum_cm(
+                        g[nd:], w[nd:], keys, hashed_rows,
+                        out=d_table[:, dense_rows:])
         if ctx.needs_input_grad[2]:
             d_w = torch.stack([torch.einsum("chs,cs->hs", rows[l], g[l])
                                for l in range(num_levels)])

@@ -4,7 +4,10 @@
 ``scatter_add_chunked_cm``, and ``scatter_add_partial_cm`` built from K1).
 
 ``scatter_add_cm(values, idx, num_rows)`` computes
-``out[:, idx[m]] += values[:, m]`` on channel-major ``[C, M]`` updates, and
+``out[:, idx[m]] += values[:, m]`` on channel-major ``[C, M]`` updates;
+``scatter_add_wsum_cm(g, w, keys, num_rows)`` is K1's fused entry, the same
+sum over the hash encoder's updates ``w[l, k, s] * g[l, :, s]`` formed inside
+the kernel (so the ``[C, 8 N L]`` values never exist); and
 ``scatter_add_dense_cm`` the dense-level corner scatter of the JAX package:
 for every sample s of dense level l and every corner k,
 ``out[:, base[s] + off_l(k)] += w_k(bf16(frac[:, s])) * g[:, s]``.
@@ -14,10 +17,11 @@ and carried to the kernel as pairs in int32 (``pack_bf16_pairs``);
 that are sorted each on its own and summed in chunk order.
 
 On a CUDA tensor they sort their keys with a stable ``torch.sort``, find each
-key's run with ``torch.searchsorted`` (``sort_rows``; the JAX package sorts
-with ``lax.sort`` outside its kernel too; K5 sorts its chunks with one
-batched ``torch.sort``, ``sort_chunks``, and finds each row tile's range of
-every chunk inside its kernel), and launch the hand-written kernels in
+key's run with one pass over the sorted keys (``sort_rows``, ``run_starts``;
+the JAX package sorts with ``lax.sort`` outside its kernel too; K5 sorts its
+chunks with one batched ``torch.sort``, ``sort_chunks``, and finds each row
+tile's range of every chunk inside its kernel), and launch the hand-written
+kernels in
 ``csrc/scatter.cu`` and ``csrc/scatter_chunked.cu``, which sum every output
 row in an order fixed by the data: the result is bitwise the same on every
 launch, with no float atomics.  On a
@@ -39,9 +43,23 @@ import torch
 
 from ucnerf_tpu_torch.ops import build
 
-# Walks longer than this go to the block-per-row pass (``kLong`` in
-# csrc/scatter.cu).
+# K5's runs longer than this go to the whole block (``kLong`` in
+# csrc/scatter_common.cuh).
 LONG_RUN = 256
+# The walk tiers of csrc/scatter.cu: a row whose walk is at most the first
+# length is summed by one thread, up to the second by a warp, longer by a
+# block (``kThreadWalk``, ``kWarpWalk`` of RunWalk, for K1 and K3, and of
+# DenseWalk, for K2, whose walks count each sample at its 8 corners).
+RUN_TIERS = (32, 1024)
+DENSE_TIERS = (64, 2048)
+
+
+def _wsum_values(g, w):
+    """The hash encoder's updates as the JAX package lays them out
+    (``ucnerf_tpu/ops/hashgrid.py:330-342``): [C, L*8*N], level-major, then
+    corner, then sample, value w[l, k, s] * g[l, c, s]."""
+    return (w[:, None] * g[:, :, None]).transpose(0, 1).reshape(g.shape[1],
+                                                               -1)
 
 
 def scatter_add_cm_plain(values, idx, num_rows: int, out=None):
@@ -87,14 +105,50 @@ def scatter_add_dense_cm_plain(gvals, fracs, base_idx, num_rows: int, *,
     return out
 
 
+def run_starts_plain(sorted_keys, num_rows: int):
+    """Plain version of the run-starts pass: ``searchsorted`` of 0..rows."""
+    bounds = torch.arange(num_rows + 1, dtype=torch.int32,
+                          device=sorted_keys.device)
+    return torch.searchsorted(sorted_keys, bounds, out_int32=True)
+
+
+def run_starts(sorted_keys, num_rows: int):
+    """starts int32 [num_rows + 1]: starts[r] is the first position of the
+    ascending int32 keys whose key is >= r.  On a CUDA tensor one thread per
+    position writes the entries between the key before it and its own
+    (O(M + rows), where the search is rows * log M); gaps of more than 32
+    rows are filled by the thread's whole warp."""
+    if sorted_keys.device.type == "cpu":
+        return run_starts_plain(sorted_keys, num_rows)
+    _check_cuda("run_starts", sorted_keys)
+    m = sorted_keys.shape[0]
+    if sorted_keys.dtype != torch.int32 or sorted_keys.dim() != 1 \
+            or not sorted_keys.is_contiguous():
+        raise ValueError("sorted_keys must be a contiguous int32 [M] tensor")
+    if m >= 2**31 or num_rows >= 2**31:
+        raise ValueError(f"{m} keys into {num_rows} rows do not fit int32 "
+                         f"starts")
+    starts = torch.empty((num_rows + 1,), dtype=torch.int32,
+                         device=sorted_keys.device)
+    with torch.cuda.device(sorted_keys.device):
+        fn = _bind(build.load("scatter"))["starts"]
+        stream = torch.cuda.current_stream(sorted_keys.device).cuda_stream
+        err = fn(sorted_keys.data_ptr(), m, num_rows, starts.data_ptr(),
+                 stream)
+    _raise_on(err, "run starts")
+    run_starts.launches += 1
+    return starts
+
+
+run_starts.launches = 0
+
+
 def sort_rows(keys, num_rows: int):
     """The stable sort of int32 keys in [0, num_rows) and each key's run:
     returns (perm int64 [M], starts int32 [num_rows + 1]); the updates of
     key r are sorted positions [starts[r], starts[r + 1])."""
     sorted_keys, perm = torch.sort(keys, stable=True)
-    bounds = torch.arange(num_rows + 1, dtype=torch.int32, device=keys.device)
-    starts = torch.searchsorted(sorted_keys, bounds, out_int32=True)
-    return perm, starts
+    return perm, run_starts(sorted_keys, num_rows)
 
 
 def _check_cuda(name, *tensors):
@@ -137,19 +191,27 @@ def _out_buffer(out, c, num_rows, device):
 
 
 def _bind(lib):
-    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     seg = lib.ucnerf_segment_sum_cm
-    seg.argtypes = [vp, ll, vp, vp, ll, vp, ll, ctypes.c_int, vp, vp, vp]
-    seg.restype = ctypes.c_int
+    seg.argtypes = [vp, ll, vp, vp, ll, vp, ll, ci, vp, ll, vp, vp]
+    seg.restype = ci
+    wsum = lib.ucnerf_wsum_sum_cm
+    wsum.argtypes = [vp, ll, ll, vp, ll, ll, vp, vp, ll, vp, ll, ci, vp, vp,
+                     ll, vp, vp]
+    wsum.restype = ci
     dense = lib.ucnerf_dense_sum_cm
-    dense.argtypes = [vp, ll, vp, ll, vp, vp, ll, ctypes.POINTER(ll),
-                      ctypes.POINTER(ll), ctypes.c_int, vp, ll, ctypes.c_int,
-                      vp, vp, vp]
-    dense.restype = ctypes.c_int
+    dense.argtypes = [vp, ll, vp, ll, ll, vp, vp, ll, ctypes.POINTER(ll),
+                      ctypes.POINTER(ll), ci, vp, ll, ci, vp, vp, vp, ll, vp,
+                      vp]
+    dense.restype = ci
     packed = lib.ucnerf_packed_sum_cm
     packed.argtypes = seg.argtypes
-    packed.restype = ctypes.c_int
-    return {"segment": seg, "dense": dense, "packed": packed}
+    packed.restype = ci
+    starts = lib.ucnerf_run_starts
+    starts.argtypes = [vp, ll, ll, vp, vp]
+    starts.restype = ci
+    return {"segment": seg, "wsum": wsum, "dense": dense, "packed": packed,
+            "starts": starts}
 
 
 def _bind_chunked(lib):
@@ -161,28 +223,36 @@ def _bind_chunked(lib):
     return chunked
 
 
-def _long_row_scratch(rows, m, device):
-    """The list of rows handed to the block-per-row pass, and its count."""
-    return (torch.empty((min(rows, m // (LONG_RUN + 1) + 1),),
-                        dtype=torch.int32, device=device),
-            torch.zeros((1,), dtype=torch.int32, device=device))
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def _tier_scratch(rows, walk, tiers, device):
+    """The lists of rows handed to the warp and block tiers (one int32
+    tensor, the warp list's warp_cap entries first), warp_cap, and the two
+    zeroed counts.  `walk` is the sum of all rows' walk lengths, which
+    bounds how many rows can pass each tier's limit."""
+    warp_cap = min(rows, walk // (tiers[0] + 1) + 1)
+    block_cap = min(rows, walk // (tiers[1] + 1) + 1)
+    return (torch.empty((warp_cap + block_cap,), dtype=torch.int32,
+                        device=device), warp_cap,
+            torch.zeros((2,), dtype=torch.int32, device=device))
 
 
 def _launch_run_sum(kernel, planes, perm, starts, out, c):
     """Launch K1 ("segment") or K3 ("packed"): they share their arguments,
     value planes, the sort and the runs."""
     rows = out.shape[1]
-    long_rows, long_count = _long_row_scratch(rows, perm.shape[0],
-                                              planes.device)
+    lists, warp_cap, counts = _tier_scratch(rows, perm.shape[0], RUN_TIERS,
+                                            planes.device)
     with torch.cuda.device(planes.device):
         fn = _bind(build.load("scatter"))[kernel]
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = fn(planes.data_ptr(), planes.stride(0), perm.data_ptr(),
                  starts.data_ptr(), rows, out.data_ptr(), out.stride(0), c,
-                 long_rows.data_ptr(), long_count.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} scatter kernel launch failed: "
-                           f"cudaError {err}")
+                 lists.data_ptr(), warp_cap, counts.data_ptr(), stream)
+    _raise_on(err, f"{kernel} scatter")
 
 
 def segment_sum_cm(values, perm, starts, out):
@@ -228,6 +298,96 @@ def scatter_add_cm(values, idx, num_rows: int, out=None):
 scatter_add_cm.launches = 0
 
 
+def scatter_add_wsum_cm_plain(g, w, keys, num_rows: int, out=None):
+    """Plain version of K1's fused entry: the updates ``w * g`` formed and
+    laid out in torch (``_wsum_values``), then ``index_add_``."""
+    return scatter_add_cm_plain(_wsum_values(g, w), keys, num_rows, out)
+
+
+def _check_wsum_inputs(g, w, m):
+    if g.dtype != torch.float32 or g.dim() != 3 \
+            or (g.stride(2) != 1 and g.shape[2] > 1):
+        raise ValueError("g must be float32 [L, C, N] with contiguous "
+                         "samples")
+    levels, c, n = g.shape
+    if w.dtype != torch.float32 or w.shape != (levels, 8, n) \
+            or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous float32 [{levels}, 8, {n}] "
+                         f"tensor, got {w.dtype} {tuple(w.shape)}")
+    if m != levels * 8 * n:
+        raise ValueError(f"{m} keys for {levels} levels x 8 corners x {n} "
+                         f"samples")
+
+
+def wsum_sum_cm(g, w, perm, starts, out):
+    """Launch K1's fused entry on a prepared sort of the keys
+    (``sort_rows``): out[:, r] = the sum over the run of row r of
+    w[col] * g[l, :, s], col = perm[p] = (l * 8 + k) * N + s.  The grads are
+    first interleaved into a [L, N, C] scratch (one streaming pass), so an
+    update reads one weight word and one C-float row."""
+    _check_cuda("wsum_sum_cm", g, w, perm, starts, out)
+    m = perm.shape[0]
+    _check_wsum_inputs(g, w, m)
+    levels, c, n = g.shape
+    rows = out.shape[1]
+    _check_planes("out", out, rows)
+    _check_sorted_runs(perm, starts, m, rows, c)
+    if out.shape[0] != c:
+        raise ValueError(f"out must have {c} planes")
+    if rows == 0:
+        return out
+    grads = torch.empty((levels * n * c,), dtype=torch.float32,
+                        device=g.device)
+    lists, warp_cap, counts = _tier_scratch(rows, m, RUN_TIERS, g.device)
+    with torch.cuda.device(g.device):
+        fn = _bind(build.load("scatter"))["wsum"]
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = fn(g.data_ptr(), g.stride(0), g.stride(1), w.data_ptr(), n,
+                 levels, perm.data_ptr(), starts.data_ptr(), rows,
+                 out.data_ptr(), out.stride(0), c, grads.data_ptr(),
+                 lists.data_ptr(), warp_cap, counts.data_ptr(), stream)
+    _raise_on(err, "fused scatter")
+    scatter_add_wsum_cm.launches += 1
+    return out
+
+
+def scatter_add_wsum_cm(g, w, keys, num_rows: int, out=None):
+    """K1's fused entry: K1 over the hash encoder's corner updates, with
+    each update ``w[l, k, s] * g[l, :, s]`` formed inside the kernel.
+
+    The same function as ``scatter_add_cm(_wsum_values(g, w), keys, ...)``;
+    on the card it walks in K1's order and multiplies with torch's f32
+    rounding, so it is bitwise K1 on the torch-formed updates, and the
+    ``[C, L*8*N]`` values array is never built.
+
+    Args:
+      g: [L, C, N] float32 feature grads of L levels (samples contiguous).
+      w: [L, 8, N] float32 corner weights, contiguous.
+      keys: [L*8*N] int32 rows in [0, num_rows), level-major, then corner,
+        then sample (the encoder's level-offset corner rows).
+      num_rows: output rows.
+      out: optional [C, num_rows] float32 view with contiguous rows to write
+        into; every row of it is written.
+
+    Returns:
+      out, or a new [C, num_rows] float32 tensor.
+    """
+    if not g.device == w.device == keys.device:
+        raise ValueError(f"g on {g.device}, w on {w.device}, keys on "
+                         f"{keys.device}")
+    if g.device.type == "cpu":
+        return scatter_add_wsum_cm_plain(g, w, keys, num_rows, out)
+    if keys.dtype != torch.int32 or keys.dim() != 1:
+        raise ValueError("keys must be an int32 [M] tensor")
+    _check_wsum_inputs(g, w, keys.shape[0])
+    out = _out_buffer(out, g.shape[1], num_rows, g.device)
+    perm, starts = sort_rows(keys, num_rows)
+    return wsum_sum_cm(g, w, perm, starts, out)
+
+
+scatter_add_wsum_cm.launches = 0
+
+
 def dense_sum_cm(gvals, fracs, perm, starts, level_offsets, strides, out):
     """Launch K2 on a prepared sort of the base keys (``sort_rows``)."""
     _check_cuda("dense_sum_cm", gvals, fracs, perm, starts, out)
@@ -249,18 +409,21 @@ def dense_sum_cm(gvals, fracs, perm, starts, level_offsets, strides, out):
         return out
     offs = (ctypes.c_longlong * (n + 1))(*level_offsets)
     strd = (ctypes.c_longlong * n)(*strides)
-    long_rows = torch.empty((rows,), dtype=torch.int32, device=gvals.device)
-    long_count = torch.zeros((1,), dtype=torch.int32, device=gvals.device)
+    # Records of C grads and 3 fracs, padded to a multiple of 4 floats
+    # (``record_floats``), in sample order and in sorted order.
+    records = torch.empty((2, m, (c + 6) // 4 * 4), dtype=torch.float32,
+                          device=gvals.device)
+    lists, warp_cap, counts = _tier_scratch(rows, 8 * m, DENSE_TIERS,
+                                            gvals.device)
     with torch.cuda.device(gvals.device):
         dense = _bind(build.load("scatter"))["dense"]
         stream = torch.cuda.current_stream(gvals.device).cuda_stream
         err = dense(gvals.data_ptr(), gvals.stride(0), fracs.data_ptr(),
-                    fracs.stride(0), perm.data_ptr(), starts.data_ptr(), rows,
-                    offs, strd, n, out.data_ptr(), out.stride(0), c,
-                    long_rows.data_ptr(), long_count.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"dense scatter kernel launch failed: "
-                           f"cudaError {err}")
+                    fracs.stride(0), m, perm.data_ptr(), starts.data_ptr(),
+                    rows, offs, strd, n, out.data_ptr(), out.stride(0), c,
+                    records[0].data_ptr(), records[1].data_ptr(),
+                    lists.data_ptr(), warp_cap, counts.data_ptr(), stream)
+    _raise_on(err, "dense scatter")
     scatter_add_dense_cm.launches += 1
     return out
 
