@@ -15,25 +15,28 @@ Phases:
      ``take_cm`` for one-hot weights; K1's two entry points, K2 and K3 at
      one training microbatch of each grid, with a skewed row of 1e5
      updates: the fused ``scatter_add_wsum_cm``, which the f32 step
-     launches, bitwise ``segment_sum_cm`` on the torch-formed w*g, K3
-     bitwise K1 on the bf16-rounded updates, the run-starts pass bitwise
-     searchsorted; K5, which no path calls, at the NeRF grid's hashed stream
-     in 1 and 24 chunks and on a small stream of corner cases), check that
-     the scatters are bitwise deterministic, and time kernel, prep, plain
-     version and the nearest PyTorch call, with the walk lengths;
+     launches, bitwise ``segment_sum_cm`` on the torch-formed w*g; K3's
+     fused ``scatter_add_wsum_packed_cm``, which the bf16 step launches,
+     bitwise the planar K3 on the torch-formed, bf16-rounded w*g; the planar K3 bitwise K1 on the bf16-rounded
+     updates; the run-starts pass bitwise searchsorted; K5, which no path
+     calls, at the NeRF grid's hashed stream in 1 and 24 chunks and on a
+     small stream of corner cases), check that the scatters are bitwise
+     deterministic, and time kernel, prep, plain version and the nearest
+     PyTorch call, with the walk lengths;
   4. render phase: render 2 views of 480x320 through ``render_image`` with
      the canonical Waymo model (``configs.waymo()``, full width, random
      weights from a seed), count the kernel launches of that run, check the
-     outputs, and match a 64-ray chunk against the same model on the CPU;
-     then the real-index phase: K4's two entry points held and timed on the
-     corner indices and weights that one render chunk hands to a proposal
-     level and to a NeRF level (neighbouring samples share rows there; the
-     kernel phase's uniform stream is the worst case);
+     outputs, render the first view again through the same eval step
+     (bitwise equal), and match a 64-ray chunk against the same model on
+     the CPU; then the real-index phase: K4's two entry points held and
+     timed on the corner indices and weights that one render chunk hands to
+     a proposal level and to a NeRF level (neighbouring samples share rows
+     there; the kernel phase's uniform stream is the worst case);
   5. gradient check: one 64-ray training microbatch on the card against
      the same model on the CPU (plain versions of every kernel); then the
-     real-stream phase: K1's fused entry and K2 held, timed and their walk
-     lengths read on what one training microbatch's f32 backward hands
-     them at each grid;
+     real-stream phase: K1's fused entry, K3's fused entry and K2 held,
+     timed and their walk lengths read on what one training microbatch's
+     f32 backward hands them at each grid;
   6. training phase: one warm-up and 5 timed steps of
      ``configs.waymo(lr_delay_steps=0)`` (15000 rays in 10 microbatches,
      Adam) on a fixed batch drawn from the two views; check the losses, the
@@ -42,15 +45,20 @@ Phases:
      run-starts passes a step;
   7. bf16 training phase: the same model from the same initial state with
      ``grid_bwd_value_dtype='bfloat16'`` on both fields, one warm-up and 2
-     timed steps; K3 takes K1's place (20 K3, 20 K2, 160 K4 and no K1 launch
-     a step), and the first step's table gradients stay within 1 % relative
-     L2 of the f32 phase's;
-  8. CLI phase: ``ucnerf_tpu_torch.cli.train`` in-process on the synthetic
+     timed steps; K3 takes K1's place (20 K3, all through its fused entry,
+     so no [C, 8 N L] values and no [C/2, M] packed words are built; 20 K2,
+     160 K4 and no K1 launch a step), and the first step's table gradients
+     stay within 1 % relative L2 of the f32 phase's;
+  8. repeatability phase: for each backward, two runs of 2 steps from the
+     same initial parameters, a fresh Adam state, the same batch and one
+     generator seed; every parameter, every Adam moment and the losses
+     bitwise equal;
+  9. CLI phase: ``ucnerf_tpu_torch.cli.train`` in-process on the synthetic
      scene (``--preset synthetic_quality`` with the bf16 backward): 30
      steps, a test render, checkpoints, then a second call that resumes at
      step 30 and ends at 40;
-  9. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
-     the last line.
+  10. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+     as the last line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 fails before printing any result.  Imports nothing of JAX.
@@ -107,6 +115,13 @@ BF16_STEPS = 2
 # relative, 1.1e-3 rms): its first step's table gradients are held to 1 %
 # relative L2 of the f32 backward's.
 BF16_GRAD_REL_L2 = 1e-2
+# The keys of K3's fused-entry calls summed over the grids.
+K3_FUSED_SUMS = ("torch_sequence_ms", "formation_ms", "pack_ms", "planar_ms",
+                 "fused_k1_ms", "bound_with_records_ms")
+# The repeatability phase: steps of each of its two runs, and their
+# generator's seed.
+REPEAT_STEPS = 2
+REPEAT_SEED = 7
 # K5 is held at the chunk counts the JAX package's record names: unchunked,
 # and its best configuration.
 K5_CHUNKS = (1, 24)
@@ -443,12 +458,13 @@ def scatter_phase(torch, scatter, hashgrid, configs):
     gen = torch.Generator(device=dev).manual_seed(6)
     c = 4
     check_run_starts(torch, scatter)
-    k1, k1p, k2, k3 = ({"ms": 0.0, "prep_ms": 0.0, "plain_ms": 0.0,
-                        "library_ms": 0.0, "bound_ms": 0.0,
-                        "max_abs_err": 0.0, "per_call": []}
-                       for _ in range(4))
+    k1, k1p, k2, k3, k3p = ({"ms": 0.0, "prep_ms": 0.0, "plain_ms": 0.0,
+                             "library_ms": 0.0, "bound_ms": 0.0,
+                             "max_abs_err": 0.0, "per_call": []}
+                            for _ in range(5))
     k1.update(torch_sequence_ms=0.0, run_starts_ms=0.0, searchsorted_ms=0.0)
-    k3.update(pack_ms=0.0, pack_bound_ms=0.0)
+    k3.update({k: 0.0 for k in K3_FUSED_SUMS})
+    k3p.update(pack_ms=0.0, pack_bound_ms=0.0)
     for name, spec, hm in grid_specs(configs, hashgrid):
         nd = spec.dense_prefix
         dense_rows = spec.offsets[nd]
@@ -498,6 +514,10 @@ def scatter_phase(torch, scatter, hashgrid, configs):
         callw = wsum_call(torch, scatter, f"K1 fused {name}", g, w, idx,
                           hashed_rows)
         callw["grid"] = name
+        # K3's fused entry on the same updates, as the bf16 step launches it.
+        callf = wsum_packed_call(torch, scatter, f"K3 fused {name}", g, w,
+                                 idx, hashed_rows, callw["ms"])
+        callf["grid"] = name
         del g, w
         # K3 on the same stream: the updates rounded to bf16 and packed.
         rounded = values.to(torch.bfloat16).float()
@@ -561,8 +581,10 @@ def scatter_phase(torch, scatter, hashgrid, configs):
                            spec.offsets[:nd + 1], spec.dense_strides, hm)
         calld["grid"] = name
         del g, fr, base
-        add_calls(((k1, callw), (k1p, call), (k2, calld), (k3, callp)))
+        add_calls(((k1, callw), (k1p, call), (k2, calld), (k3, callf),
+                   (k3p, callp)))
         print_scatter(f"K1 fused {name}", callw)
+        print_packed(f"K3 fused {name}", callf)
         for label, rec in (("K1", call), ("K2", calld), ("K3", callp)):
             print_scatter(f"{label} {name}", rec)
     torch.cuda.empty_cache()
@@ -575,10 +597,13 @@ def scatter_phase(torch, scatter, hashgrid, configs):
     k2.update(name="scatter_add_dense_cm (dense-level table gradient, K2)",
               route="cuda", source="ucnerf_tpu_torch/csrc/scatter.cu",
               replaces="ucnerf_tpu/ops/scatter.py:604", bound_by="bytes")
-    k3.update(name="scatter_add_packed_cm (bf16-packed hashed-level table "
-              "gradient, K3)", route="cuda",
+    k3.update(name="scatter_add_wsum_packed_cm / scatter_add_packed_cm "
+              "(bf16-packed hashed-level table gradient, K3; the fused "
+              "entry, which the bf16 step launches, forms, rounds and packs "
+              "w*g in the kernel)", route="cuda",
               source="ucnerf_tpu_torch/csrc/scatter.cu",
-              replaces="ucnerf_tpu/ops/scatter.py:406", bound_by="bytes")
+              replaces="ucnerf_tpu/ops/scatter.py:406", bound_by="bytes",
+              scatter_add_packed_cm=k3p)
     return k1, k2, k3, k5
 
 
@@ -602,6 +627,74 @@ def wsum_call(torch, scatter, label, g, w, keys, rows):
     rec.update(max_abs_err=err, walks=walk_stats(
         torch, starts[1:] - starts[:-1], scatter.RUN_TIERS))
     return rec
+
+
+def wsum_packed_call(torch, scatter, label, g, w, keys, rows, fused_k1_ms):
+    """K3's fused entry on (g, w, keys): through its wrapper and its launch
+    half against the float64 sum of the torch-rounded updates, bitwise
+    across launches and against K3 on the torch-formed, rounded updates;
+    times beside the torch sequence it replaces (formation, pack, K3),
+    index_add_ and the fused K1 entry (`fused_k1_ms`, timed on the same
+    inputs), and its bound."""
+    levels, c, n = g.shape
+    m = keys.numel()
+    out = torch.empty((c, rows), device=g.device)
+    perm, starts = scatter.sort_rows(keys, rows)
+    formed = scatter._wsum_values(g, w)
+    packed = scatter.pack_bf16_pairs(formed)
+    rounded = scatter.unpack_bf16_pairs(packed)
+    want64 = scatter.scatter_add_cm_plain(rounded.double(), keys, rows)
+    err = max(
+        check_scatter(torch, f"{label} (wrapper)",
+                      lambda: scatter.scatter_add_wsum_packed_cm(
+                          g, w, keys, rows, out=out), want64),
+        check_scatter(torch, label,
+                      lambda: scatter.wsum_packed_sum_cm(g, w, perm, starts,
+                                                         out), want64))
+    del want64
+    check(torch.equal(scatter.wsum_packed_sum_cm(g, w, perm, starts, out),
+                      scatter.packed_sum_cm(packed, perm, starts,
+                                            torch.empty_like(out))),
+          f"{label}: differs from K3 on the torch-formed, rounded updates")
+    keys64 = keys.long()
+    words = m * c // 2
+    bound = (m * (8 + 4) + levels * n * 4 * c + (rows + 1) * 4
+             + rows * 4 * c) / HBM_BYTES_PER_S * 1e3
+    rec = {"M": m, "rows": rows,
+           "ms": time_ms(lambda: scatter.wsum_packed_sum_cm(
+               g, w, perm, starts, out), torch),
+           "prep_ms": time_ms(lambda: scatter.sort_rows(keys, rows), torch),
+           "plain_ms": time_ms(lambda: scatter.scatter_add_wsum_packed_cm_plain(
+               g, w, keys, rows, out), torch),
+           "library_ms": time_ms(lambda: out.zero_().index_add_(
+               1, keys64, rounded), torch),
+           "torch_sequence_ms": time_ms(lambda: scatter.packed_sum_cm(
+               scatter.pack_bf16_pairs(scatter._wsum_values(g, w)), perm,
+               starts, out), torch),
+           "formation_ms": time_ms(lambda: scatter._wsum_values(g, w), torch),
+           "pack_ms": time_ms(lambda: scatter.pack_bf16_pairs(formed), torch),
+           "planar_ms": time_ms(lambda: scatter.packed_sum_cm(
+               packed, perm, starts, out), torch),
+           "fused_k1_ms": fused_k1_ms,
+           # The same inputs and output as K1's fused entry.
+           "bound_ms": bound,
+           # Plus the records' round trip: written and read once.
+           "bound_with_records_ms": bound
+           + 2 * words * 4 / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": err}
+    del formed, packed, rounded, keys64
+    return rec
+
+
+def print_packed(label, rec):
+    print(f"[kernel] {label} M={rec['M']} rows={rec['rows']}: "
+          f"{rec['ms']:.4f} ms (prep {rec['prep_ms']:.4f}; formation + pack "
+          f"+ K3 {rec['torch_sequence_ms']:.4f} = {rec['formation_ms']:.4f} + "
+          f"{rec['pack_ms']:.4f} + {rec['planar_ms']:.4f}; fused K1 "
+          f"{rec['fused_k1_ms']:.4f}; plain {rec['plain_ms']:.4f}, "
+          f"index_add_ {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}"
+          f" ({rec['bound_with_records_ms']:.4f} with the records)), max abs "
+          f"err {rec['max_abs_err']:.3g}", flush=True)
 
 
 def dense_call(torch, scatter, label, g, fr, base, level_offsets, strides,
@@ -701,11 +794,13 @@ def wsum_times(torch, scatter, g, w, keys, perm, starts, out):
 
 def add_calls(pairs):
     """Adds each call's times into its kernel's totals over the grids."""
+    summed = dict.fromkeys(("ms", "prep_ms", "plain_ms", "library_ms",
+                            "bound_ms", "pack_ms", "pack_bound_ms",
+                            "torch_sequence_ms", "run_starts_ms",
+                            "searchsorted_ms", *K3_FUSED_SUMS))
     for entry, rec in pairs:
         entry["per_call"].append(rec)
-        for k in ("ms", "prep_ms", "plain_ms", "library_ms", "bound_ms",
-                  "pack_ms", "pack_bound_ms", "torch_sequence_ms",
-                  "run_starts_ms", "searchsorted_ms"):
+        for k in summed:
             if k in rec and k in entry:
                 entry[k] += rec[k]
         entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
@@ -880,6 +975,12 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
     check_fused_entry(gather, "render")
     launches = by_kernel["K4"]
     peak = torch.cuda.max_memory_allocated()
+    # A render is a function of the weights and the rays: the first view
+    # again, after the second, through the same eval step.
+    again = step.render_image(eval_step, views[0], cfg, eval_camidx=0)
+    differ = [k for k in outs[0] if not np.array_equal(outs[0][k], again[k])]
+    check(not differ, f"a second render of one view differs in {differ}")
+    del again
 
     levels = cfg.nerf_mlp.grid_num_levels + sum(
         cfg.prop_mlp.with_grid(g).grid_num_levels
@@ -903,7 +1004,8 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
           f"{[round(n / s, 1) for n, s in zip(num_rays, secs)]}, "
           f"K4 (take_wsum_cm) launches {launches} ({levels}/chunk x "
           f"{chunks}), "
-          f"peak {peak / 2**30:.2f} GiB", flush=True)
+          f"peak {peak / 2**30:.2f} GiB; view 0 rendered again: bitwise "
+          f"equal", flush=True)
 
     # 64-ray chunk: the card (kernels) against the CPU (plain versions).
     stride = VIEW_W * VIEW_H // 64
@@ -934,6 +1036,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
            "seconds": secs, "chunks": chunks, "launches": by_kernel,
            "launches_per_chunk": levels, "peak_bytes": peak,
            "render_subchunks": cfg.render_subchunks,
+           "second_render_bitwise_equal": True,
            "gpu_vs_cpu_max_abs_err": errs}
     return res, eval_step, views, cfg, model
 
@@ -1005,13 +1108,15 @@ def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
 
 
 def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
-                      batch, k1, k2):
-    """K1's fused entry and K2 on what the f32 backward of one training
-    microbatch hands them, for each grid: the feature grads, corner weights
-    and keys of the hashed levels, and the feature grads, fractional coords
-    and corner-0 rows of the dense levels.  Recorded from the encoder's own
-    calls; the uniform stream of the kernel phase is the worst case for the
-    reads, not for the skew, so the walk lengths are reported too."""
+                      batch, k1, k2, k3):
+    """K1's fused entry, K3's fused entry and K2 on what the f32 backward of
+    one training microbatch hands them, for each grid: the feature grads,
+    corner weights and keys of the hashed levels (K3's fused entry takes the
+    same inputs in the bf16 backward), and the feature grads, fractional
+    coords and corner-0 rows of the dense levels.  Recorded from the
+    encoder's own calls; the uniform stream of the kernel phase is the
+    worst case for the reads, not for the skew, so the walk lengths are
+    reported too."""
     wsum, dense = {}, {}
 
     def wsum_recorder(g, w, keys, num_rows, out=None):
@@ -1033,7 +1138,7 @@ def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
     hashgrid.scatter = types.SimpleNamespace(
         scatter_add_wsum_cm=wsum_recorder,
         scatter_add_dense_cm=dense_recorder,
-        scatter_add_packed_cm=scatter.scatter_add_packed_cm)
+        scatter_add_wsum_packed_cm=scatter.scatter_add_wsum_packed_cm)
     try:
         renderings, history = model(part, 0.5, None, compute_extras=False,
                                     train=True, generator=gen)
@@ -1048,7 +1153,7 @@ def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
     check(len(wsum) == 2 and len(dense) == 2,
           f"one microbatch's backward gave the fused K1 entry {len(wsum)} "
           f"and K2 {len(dense)} distinct calls; expected one per grid")
-    res = {"K1": [], "K2": []}
+    res = {"K1": [], "K2": [], "K3": []}
     # The proposal grid's hashed region is the smaller, its dense stream the
     # longer (128 samples a ray against the NeRF field's 32).
     for grid, rows in zip(("proposal", "nerf"), sorted(wsum)):
@@ -1058,6 +1163,11 @@ def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
         rec["grid"] = grid
         print_scatter(f"K1 fused real {grid}", rec)
         res["K1"].append(rec)
+        recp = wsum_packed_call(torch, scatter, f"K3 fused real {grid}", g, w,
+                                keys, rows, rec["ms"])
+        recp["grid"] = grid
+        print_packed(f"K3 fused real {grid}", recp)
+        res["K3"].append(recp)
         del g, w, keys
     for grid, md in zip(("nerf", "proposal"), sorted(dense)):
         g, fr, base, offsets, strides, level_len = dense.pop(md)
@@ -1069,6 +1179,7 @@ def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
         del g, fr, base
     torch.cuda.empty_cache()
     k1["real_stream"], k2["real_stream"] = res["K1"], res["K2"]
+    k3["real_stream"] = res["K3"]
 
 
 def train_batch(views, cfg, n, seed):
@@ -1095,12 +1206,13 @@ def reset_launches(gather, scatter):
     scatter.scatter_add_wsum_cm.launches = 0
     scatter.scatter_add_dense_cm.launches = 0
     scatter.scatter_add_packed_cm.launches = 0
+    scatter.scatter_add_wsum_packed_cm.launches = 0
     scatter.scatter_add_chunked_cm.launches = 0
     scatter.run_starts.launches = 0
 
 
 def read_launches(gather, scatter):
-    """Launches by kernel; K1 and K4 are each one kernel family with two
+    """Launches by kernel; K1, K3 and K4 are each one kernel family with two
     entry points, also counted apart; "starts" is the run-starts pass that
     every sort of K1, K2 and K3 ends with."""
     return {"K1": (scatter.scatter_add_cm.launches
@@ -1108,7 +1220,10 @@ def read_launches(gather, scatter):
             "K1_fused": scatter.scatter_add_wsum_cm.launches,
             "K1_plain": scatter.scatter_add_cm.launches,
             "K2": scatter.scatter_add_dense_cm.launches,
-            "K3": scatter.scatter_add_packed_cm.launches,
+            "K3": (scatter.scatter_add_packed_cm.launches
+                   + scatter.scatter_add_wsum_packed_cm.launches),
+            "K3_fused": scatter.scatter_add_wsum_packed_cm.launches,
+            "K3_planar": scatter.scatter_add_packed_cm.launches,
             "K4": gather.take_cm.launches + gather.take_wsum_cm.launches,
             "K5": scatter.scatter_add_chunked_cm.launches,
             "starts": scatter.run_starts.launches}
@@ -1177,12 +1292,14 @@ def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
                if n.endswith(".table") and not bool(p.grad.abs().max() > 0)]
     check(not no_grad, f"{label}: tables with a zero gradient: {no_grad}")
     # Per microbatch: one proposal and one NeRF field, each with a hashed and
-    # a dense part of the table gradient.  K1 launches only through its
-    # fused entry, so no [C, 8 N L] values tensor is built (K1_plain 0).
+    # a dense part of the table gradient.  K1 and K3 launch only through
+    # their fused entries, so no [C, 8 N L] values tensor and no [C/2, M]
+    # packed words are built (K1_plain and K3_planar 0).
     hashed = 2 * cfg.microbatches
     per_step = {"K1": 0 if bf16 else hashed,
                 "K1_fused": 0 if bf16 else hashed, "K1_plain": 0,
                 "K2": 2 * cfg.microbatches, "K3": hashed if bf16 else 0,
+                "K3_fused": hashed if bf16 else 0, "K3_planar": 0,
                 "K4": 16 * cfg.microbatches, "K5": 0,
                 "starts": hashed + 2 * cfg.microbatches}
     for k, n in per_step.items():
@@ -1242,6 +1359,62 @@ def compare_first_grads(f32_grads, bf16_grads, hashed_from):
     print(f"[train bf16] first-step table gradients vs the f32 backward: "
           f"rel L2 {rel} (limit {BF16_GRAD_REL_L2})", flush=True)
     return rel
+
+
+def repeat_phase(torch, step, state_lib, cfgs, initial, batch):
+    """The port's counterpart of the JAX package's determinism check: for
+    each backward, two runs of REPEAT_STEPS steps, each from the `initial`
+    parameters with a fresh Adam state, on the same batch with a generator
+    seeded REPEAT_SEED.  Every parameter, every Adam moment and the losses
+    must be bitwise equal."""
+    res = {}
+    dev = batch["origins"].device
+    for label, cfg in cfgs:
+        runs = []
+        for _ in range(2):
+            model = step.init_model(cfg, seed=0, device=dev)
+            model.load_state_dict(initial, strict=True)
+            state = state_lib.create_train_state(cfg, model)
+            train_step = step.make_train_step(model, cfg)
+            gen = torch.Generator(device=dev).manual_seed(REPEAT_SEED)
+            losses = []
+            for _ in range(REPEAT_STEPS):
+                state, stats = train_step(state, batch, 0.5, generator=gen)
+                losses.append(stats["loss"].detach().clone())
+            tensors = {f"param {n}": p.detach().clone()
+                       for n, p in model.named_parameters()}
+            names = dict(enumerate(n for n, _ in model.named_parameters()))
+            for i, s in state.optimizer.adam.state_dict()["state"].items():
+                for k, v in s.items():
+                    tensors[f"adam {names[i]} {k}"] = torch.as_tensor(
+                        v).clone()
+            tensors.update({f"loss step {i + 1}": v
+                            for i, v in enumerate(losses)})
+            runs.append(tensors)
+            del model, state, train_step
+        first, second = runs
+        check(set(first) == set(second), f"repeat {label}: the two runs hold "
+              f"different tensors")
+        moments = sum(k.startswith("adam ") and not k.endswith(" step")
+                      for k in first)
+        check(moments == 2 * sum(k.startswith("param ") for k in first),
+              f"repeat {label}: {moments} Adam moments for "
+              f"{sum(k.startswith('param ') for k in first)} parameters")
+        differ = [k for k in first if not torch.equal(first[k], second[k])]
+        res[label] = {"tensors": len(first), "adam_moments": moments,
+                      "steps": REPEAT_STEPS, "seed": REPEAT_SEED,
+                      "differ": differ,
+                      "losses": [float(first[f"loss step {i + 1}"])
+                                 for i in range(REPEAT_STEPS)]}
+        print(f"[repeat {label}] two runs of {REPEAT_STEPS} steps from one "
+              f"state and generator seed {REPEAT_SEED}: {len(first)} tensors "
+              f"({moments} Adam moments), "
+              + (f"differ in {differ}" if differ else "all bitwise equal")
+              + f"; losses {res[label]['losses']}", flush=True)
+        del runs, first, second
+    differ = {label: r["differ"] for label, r in res.items() if r["differ"]}
+    check(not differ, f"repeat: the two runs differ in {differ}")
+    return res
 
 
 def steady_windows(logged, start, render_every):
@@ -1309,6 +1482,8 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size):
             check(kept == [str(max_steps)],
                   f"CLI: checkpoints {kept}, expected [{max_steps}]")
             check(launches["K3"] == steps * microbatches * 2
+                  and launches["K3_fused"] == launches["K3"]
+                  and launches["K3_planar"] == 0
                   and launches["K2"] == steps * microbatches * 2
                   and launches["starts"] == steps * microbatches * 4
                   and launches["K1"] == 0,
@@ -1431,15 +1606,17 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
     bf16 = cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
     # Kernels by the template argument or name that marks them: K1's fused
     # entry (its walks and the grads' interleave), K2 (walks and the two
-    # record passes), K3, the prep of all three (the stable sort and the
-    # run starts), K4.
+    # record passes), K3 (the planar walk; the fused entry's walk and its
+    # record pass), the prep of all three (the stable sort and the run
+    # starts), K4.
     write_profile(torch, prof, wall_us, path,
                   f"one training step of {batch['origins'].shape[0]} rays"
                   + (" (bf16 backward)" if bf16 else ""),
                   {"K1": ("WeightedRows", "interleave_grads_kernel"),
                    "K2": ("DenseWalk", "dense_pack_kernel",
                           "gather_records_kernel"),
-                   "K3": ("Bf16Pairs",),
+                   "K3": ("Bf16Pairs", "Bf16Records",
+                          "form_records_kernel"),
                    "prep": ("RadixSort", "run_starts_kernel"),
                    "K4": ("take_wsum_kernel", "take_kernel",
                           "interleave_kernel<")})
@@ -1541,7 +1718,7 @@ def main(argv=None):
              train_batch(views, train_cfg, TRAIN_RAYS, seed=4).items()}
     grad_res = grad_check_phase(torch, losses_lib, model, train_cfg, batch)
     real_stream_phase(torch, scatter, hashgrid, losses_lib, model, train_cfg,
-                      batch, k1, k2)
+                      batch, k1, k2, k3)
     initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     train_res, f32_grads = train_phase(
         torch, gather, scatter, step, state_lib, model, train_cfg, batch,
@@ -1555,7 +1732,6 @@ def main(argv=None):
     bf16_cfg = with_bf16_backward(train_cfg)
     bf16_model = step.init_model(bf16_cfg, seed=0, device="cuda")
     bf16_model.load_state_dict(initial, strict=True)
-    del initial
     bf16_res, bf16_grads = train_phase(
         torch, gather, scatter, step, state_lib, bf16_model, bf16_cfg, batch,
         BF16_STEPS, "bf16")
@@ -1569,7 +1745,12 @@ def main(argv=None):
         root, ext = os.path.splitext(args.profile_train)
         profile_train_step(torch, bf16_model, bf16_cfg, batch, step,
                            state_lib, f"{root}.bf16{ext}")
-    del bf16_model, batch
+    del bf16_model
+    torch.cuda.empty_cache()
+    repeat_res = repeat_phase(torch, step, state_lib,
+                              (("f32", train_cfg), ("bf16", bf16_cfg)),
+                              initial, batch)
+    del initial, batch
     torch.cuda.empty_cache()
 
     cli_res = cli_phase(torch, gather, scatter, cli_train,
@@ -1612,6 +1793,14 @@ def main(argv=None):
         "scatter_add_cm": sum(n["K1_plain"] for n in paths.values())}
     check(k1["launches_by_entry"]["scatter_add_cm"] == 0,
           f"K1's plain entry was launched on a path: {k1['launches_by_entry']}")
+    # K3 likewise only through its fused entry: no path builds the [C/2, M]
+    # packed words.
+    k3["launches_by_entry"] = {
+        "scatter_add_wsum_packed_cm": sum(n["K3_fused"]
+                                          for n in paths.values()),
+        "scatter_add_packed_cm": sum(n["K3_planar"] for n in paths.values())}
+    check(k3["launches_by_entry"]["scatter_add_packed_cm"] == 0,
+          f"the planar K3 was launched on a path: {k3['launches_by_entry']}")
     k1["run_starts_launches_by_path"] = {p: n["starts"]
                                          for p, n in paths.items()}
     check(all(n["starts"] == n["K1"] + n["K2"] + n["K3"]
@@ -1627,8 +1816,8 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "render": slice_res, "train": train_res,
-                       "train_bf16": bf16_res, "cli": cli_res,
-                       "grad_check": grad_res}, f, indent=1)
+                       "train_bf16": bf16_res, "repeat": repeat_res,
+                       "cli": cli_res, "grad_check": grad_res}, f, indent=1)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

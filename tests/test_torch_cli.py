@@ -137,21 +137,31 @@ def _flat(payload):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-def test_cli_train_runs_and_resumes_bitwise(tmp_path, bf16):
+def test_cli_train_runs_and_resumes_bitwise(tmp_path, monkeypatch, bf16):
     """6 straight steps, against 3 steps + resume + 3 steps; with the f32
-    and with the bf16-packed table backward."""
-    extra = []
+    and with the bf16-packed table backward.  Test renders at steps 3 and
+    6: the resumed process renders only at 6, after a checkpoint restore
+    and no earlier render, and must render the straight run's pixels and
+    log its PSNR and SSIM."""
+    rendered = []
+    render_image = step_lib.render_image
+    monkeypatch.setattr(
+        step_lib, "render_image",
+        lambda *a, **kw: rendered.append(render_image(*a, **kw))
+        or rendered[-1])
+    extra = ["-b", "Config.train_render_every = 3"]
     if bf16:
-        extra = ["-b", 'NerfMLP.grid_bwd_value_dtype = "bfloat16"',
-                 "-b", 'PropMLP.grid_bwd_value_dtype = "bfloat16"']
+        extra += ["-b", 'NerfMLP.grid_bwd_value_dtype = "bfloat16"',
+                  "-b", 'PropMLP.grid_bwd_value_dtype = "bfloat16"']
     straight = str(tmp_path / "straight")
     log = _run(straight, *extra)
     losses = [float(x) for x in re.findall(r"step \d+/6: loss=(\S+)", log)]
     assert len(losses) == 4  # steps 1, 2, 4, 6
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert re.search(r"step 6/6: loss=\S+ psnr=\S+ \d+ rays/s \(.*data=", log)
-    psnr = re.search(r"test render 0: psnr=(\S+) ssim=(\S+)", log)
-    assert psnr and np.isfinite(float(psnr.group(1)))
+    renders = re.findall(r"test render 0: (psnr=\S+ ssim=\S+)", log)
+    assert len(renders) == 2
+    assert np.isfinite(float(renders[-1].split()[0][len("psnr="):]))
     assert "resumed" not in log
     assert sorted(os.listdir(os.path.join(straight, "checkpoints"))) == [
         "3", "6"]
@@ -163,6 +173,13 @@ def test_cli_train_runs_and_resumes_bitwise(tmp_path, bf16):
     log = _run(resumed, *extra)
     assert "resumed from step 3" in log
     assert re.findall(r"step (\d+)/6", log) == ["4", "6"]
+    # The step-6 test render, bit for bit and in the log digit for digit.
+    assert len(rendered) == 3
+    for k in rendered[1]:
+        np.testing.assert_array_equal(rendered[2][k], rendered[1][k],
+                                      err_msg=k)
+    assert re.findall(r"test render 0: (psnr=\S+ ssim=\S+)", log) == \
+        renders[-1:]
     a, b = _flat(_load(straight, 6)), _flat(_load(resumed, 6))
     assert set(a) == set(b) and int(a["step"]) == 6 and int(a["count"]) == 6
     for k in a:

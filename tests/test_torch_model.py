@@ -149,6 +149,46 @@ def test_eval_step_draws_seeded_rand_vec():
         torch.testing.assert_close(outs[0][k], outs[1][k], rtol=0, atol=0)
 
 
+def test_eval_step_is_a_function_of_the_weights_and_rays():
+    """One eval step renders a chunk twice, with another chunk of the same
+    size in between, bitwise equal, with and without sub-chunks: its hex
+    basis is drawn anew from (seed, rays) on every call."""
+    for sub in (1, 2):
+        cfg = tconfigs.tiny(render_subchunks=sub)
+        model = tstep.init_model(cfg, seed=1, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in
+                 tstep.dummy_batch(cfg, 48).items()}
+        first = {k: v[:24] for k, v in batch.items()}
+        other = {k: v[24:] for k, v in batch.items()}
+        eval_step = tstep.make_eval_step(model, cfg, seed=5)
+        want = eval_step(first, 1.0, 0)
+        between = eval_step(other, 1.0, 0)
+        got = eval_step(first, 1.0, 0)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+        assert not torch.equal(between["rgb"], want["rgb"])
+        # The basis is the one drawn from (seed, rays of the (sub-)chunk).
+        rand_vec = torch.cat([tstep.hex_basis(5, 24 // sub)] * sub)
+        given = eval_step(first, 1.0, 0, rand_vec)
+        for k in want:
+            torch.testing.assert_close(given[k], want[k], rtol=0, atol=0)
+
+
+def test_render_image_twice_is_bitwise_equal():
+    """render_image of one view twice through one eval step, over several
+    chunks, a padded last chunk and sub-chunks."""
+    cfg = tconfigs.tiny(render_chunk_size=40, render_subchunks=2)
+    model = tstep.init_model(cfg, seed=2, device="cpu")
+    eval_step = tstep.make_eval_step(model, cfg)
+    view = _views(cfg, 7, 9)
+    first = tstep.render_image(eval_step, view, cfg, eval_camidx=1)
+    second = tstep.render_image(eval_step, view, cfg, eval_camidx=1)
+    assert set(first) == set(second)
+    for k in first:
+        assert np.isfinite(first[k]).all(), k
+        np.testing.assert_array_equal(first[k], second[k], err_msg=k)
+
+
 def test_dummy_batch_matches_jax():
     cfg = tconfigs.tiny()
     got = tstep.dummy_batch(cfg, 16)

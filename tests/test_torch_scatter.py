@@ -354,6 +354,47 @@ def test_scatter_add_packed_cm_writes_into_a_column_slice(rng):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("c, hex_n, concentrated", [
+    (4, 6, False), (4, 1, False), (2, 6, False), (8, 1, False),
+    (4, 6, True), (4, 1, True)])
+def test_scatter_add_wsum_packed_cm_plain_matches_pallas(rng, c, hex_n,
+                                                         concentrated):
+    """K3's fused entry (its plain version on the CPU) against the Pallas K3
+    on the encoder's expanded updates w * g (level-major, then corner, then
+    sample), at K3's tolerance; bitwise K3 on the torch-formed updates; and
+    not the f32 sum of the unrounded updates."""
+    g, w, keys, rows = _wsum_case(rng, c, hex_n, concentrated)
+    tg, tw, tkeys = (torch.from_numpy(a) for a in (g, w, keys))
+    expanded = (w[:, None] * g[:, :, None]).transpose(1, 0, 2, 3).reshape(
+        c, -1)
+    got = tscatter.scatter_add_wsum_packed_cm(tg, tw, tkeys, rows)
+    assert got.shape == (c, rows)
+    want = jscatter.scatter_add_packed_cm(jnp.asarray(expanded),
+                                          jnp.asarray(keys), rows,
+                                          interpret=True)
+    _close(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), tscatter.scatter_add_packed_cm(
+            tscatter._wsum_values(tg, tw), tkeys, rows).numpy())
+    with pytest.raises(AssertionError):
+        _close(tscatter.scatter_add_wsum_cm(tg, tw, tkeys, rows).numpy(),
+               want, atol_frac=0.0)
+    buf = torch.full((c, rows + 5), 3.0)
+    out = tscatter.scatter_add_wsum_packed_cm(tg, tw, tkeys, rows,
+                                              out=buf[:, 5:])
+    assert out.data_ptr() == buf[:, 5:].data_ptr()
+    np.testing.assert_array_equal(buf[:, :5].numpy(), 3.0)
+    np.testing.assert_array_equal(out.numpy(), got.numpy())
+
+
+def test_scatter_add_wsum_packed_cm_refuses_odd_channels(rng):
+    g, w, keys, rows = _wsum_case(rng, 1, 1, False)
+    with pytest.raises(ValueError, match="even"):
+        tscatter.scatter_add_wsum_packed_cm(
+            torch.from_numpy(g), torch.from_numpy(w), torch.from_numpy(keys),
+            rows)
+
+
 def _chunked_case(case, rng):
     """(values, idx, rows, num_chunks, tile_rows, block_k): the JAX package's
     own chunked-scatter cases."""
@@ -494,8 +535,9 @@ def test_encode_bf16_backward_matches_pallas(rng, monkeypatch, dense):
 def _count_scatter_calls(monkeypatch):
     """Counts of the encoder's calls to the scatter wrappers."""
     calls = dict.fromkeys(("scatter_add_cm", "scatter_add_wsum_cm",
-                           "scatter_add_packed_cm", "scatter_add_dense_cm"),
-                          0)
+                           "scatter_add_packed_cm",
+                           "scatter_add_wsum_packed_cm",
+                           "scatter_add_dense_cm"), 0)
     for name in calls:
         fn = getattr(tscatter, name)
 
@@ -510,10 +552,11 @@ def _count_scatter_calls(monkeypatch):
 def test_encode_backward_takes_the_fused_k1_entry_in_f32(rng, monkeypatch,
                                                          dense):
     """The f32 backward fills the hashed levels through K1's fused entry and
-    the bf16 one through K3; neither calls K1's plain entry, so no
-    [C, L*8*N] values are built on the f32 path.  K2 takes the dense levels
-    when asked to.  The f32 table gradient is K1 over the torch-formed
-    updates, bit for bit, on the CPU."""
+    the bf16 one through K3's fused entry; neither calls K1's plain entry or
+    the planar K3, so no [C, L*8*N] values and no [C/2, M] packed words are
+    built on either path.  K2 takes the dense levels when asked to.  The f32
+    table gradient is K1 over the torch-formed updates, and the bf16 one K3
+    over them, bit for bit, on the CPU."""
     _, tspec = _grid()
     nd = tspec.dense_prefix if dense else 0
     x01 = torch.from_numpy(rng.uniform(-0.05, 1.05, (3, 6, 50)).astype(
@@ -536,24 +579,31 @@ def test_encode_backward_takes_the_fused_k1_entry_in_f32(rng, monkeypatch,
     f32 = grad(None)
     assert calls == {"scatter_add_cm": 0, "scatter_add_wsum_cm": 1,
                      "scatter_add_packed_cm": 0,
+                     "scatter_add_wsum_packed_cm": 0,
                      "scatter_add_dense_cm": int(dense)}
-    grad("bfloat16")
+    bf16 = grad("bfloat16")
     assert calls == {"scatter_add_cm": 0, "scatter_add_wsum_cm": 1,
-                     "scatter_add_packed_cm": 1,
+                     "scatter_add_packed_cm": 0,
+                     "scatter_add_wsum_packed_cm": 1,
                      "scatter_add_dense_cm": 2 * int(dense)}
 
-    # The hashed levels' gradient from K1's plain entry on the same updates.
-    recorded = []
-    fused = tscatter.scatter_add_wsum_cm
-    monkeypatch.setattr(tscatter, "scatter_add_wsum_cm",
-                        lambda g, w, keys, rows, out=None: recorded.append(
-                            (g, w, keys, rows)) or fused(g, w, keys, rows,
-                                                         out=out))
-    np.testing.assert_array_equal(grad(None).numpy(), f32.numpy())
-    g, w, keys, rows = recorded[0]
-    want = tscatter.scatter_add_cm(tscatter._wsum_values(g, w), keys, rows)
-    np.testing.assert_array_equal(f32[:, tspec.offsets[nd]:].numpy(),
-                                  want.numpy())
+    # The hashed levels' gradient from K1's plain entry, and from the planar
+    # K3, on the same updates.
+    for name, value_dtype, got, planar in (
+            ("scatter_add_wsum_cm", None, f32, tscatter.scatter_add_cm),
+            ("scatter_add_wsum_packed_cm", "bfloat16", bf16,
+             tscatter.scatter_add_packed_cm)):
+        recorded = []
+        fused = getattr(tscatter, name)
+        monkeypatch.setattr(
+            tscatter, name,
+            lambda g, w, keys, rows, out=None, _fused=fused: recorded.append(
+                (g, w, keys, rows)) or _fused(g, w, keys, rows, out=out))
+        np.testing.assert_array_equal(grad(value_dtype).numpy(), got.numpy())
+        g, w, keys, rows = recorded[0]
+        want = planar(tscatter._wsum_values(g, w), keys, rows)
+        np.testing.assert_array_equal(got[:, tspec.offsets[nd]:].numpy(),
+                                      want.numpy())
 
 
 def test_encode_rejects_an_unknown_bwd_value_dtype():

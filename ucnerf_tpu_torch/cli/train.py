@@ -20,7 +20,9 @@ Usage:
 Every step draws its ray batch from ``np.random.default_rng((1234, step))``
 and its jitter and hex patterns from a ``torch.Generator`` seeded from
 ``(5678, step)``, so a run resumed from a checkpoint takes the steps an
-uninterrupted run would have taken, bit for bit on one device.  (The JAX
+uninterrupted run would have taken, bit for bit on one device; the test
+renders draw their hex basis from the chunk's size alone
+(``step.make_eval_step``), so they and their PSNR match too.  (The JAX
 loop folds the step into its device key the same way, but seeds one host
 stream from ``1234 + init_step``, so its resumed runs draw other batches.)
 """

@@ -12,6 +12,10 @@
 //                      and arrive as pairs in 32-bit words, C / 2 planes:
 //                      channel c in the high half of plane c, channel c + C/2
 //                      in the low half.
+// K3, fused entry      K3's sum over the fused K1 entry's updates: each
+//   (wsum_packed_sum_  w[m] * g[l, c, s] formed with f32 rounding and rounded
+//    cm)               once to bf16 in the kernel, so neither the [C, 8 N L]
+//                      values nor the [C / 2, M] planes exist.
 // Run starts           starts[r] = the first sorted position whose key is >= r
 //   (run_starts)       (torch.searchsorted of 0..rows in the sorted keys).
 //
@@ -60,6 +64,18 @@
 //       record is read 8 times, from contiguous slices.
 //   K3: K1's walk in K1's order; each update is C / 2 word loads instead of C,
 //       widened to f32 in registers and summed in f32.
+//   K3, fused entry: with the bf16 rounding the C values of an update fit
+//       one record of C / 2 words (8 bytes at C = 4: channel 2j in the low
+//       half of word j, 2j + 1 in the high half).  One pass reads the grads
+//       and weights once, in sample order, and writes each update's record
+//       at its column, (l * 8 + k) * N + s (coalesced).  The walk, K1's
+//       (same tiers, same order), reads each record through the
+//       permutation: one random sector an update, against the planar K3's
+//       C / 2 and the fused K1 entry's 2.  The result is bitwise K3 on the
+//       torch-formed, rounded updates.  A second pass that copied the
+//       records to their sorted positions first, so that the walk read
+//       contiguous runs, was no faster on the H100 at either grid: its
+//       random read costs what the walk's does.
 //
 // Bound (bytes, at 3.35 TB/s): per update the permutation entry (8 B) and its
 // value words (K1: 16 B at C = 4; fused: 4 B of weight, and the [L, C, N]
@@ -67,7 +83,9 @@
 // and C grad words (K2: 28 B); per row the run start (4 B) and the C output
 // words.  The random reads are served a 32-byte sector at a time, so K1 and
 // K3 sit above that bound: K1's plain entry reads C sectors an update, the
-// fused entry 2, K3 C / 2.  K2 reads one random sector per sample.
+// fused entry 2, K3 C / 2, K3's fused entry 1.  K2 reads one random sector per
+// sample.  K3's fused entry has K1's fused bound; its records add a round
+// trip of 2 C bytes an update.
 //
 // Offsets are 64-bit: C * M reaches 1.1e8 at the canonical microbatch.
 
@@ -95,6 +113,11 @@ struct DenseLevels {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The bits of x rounded to bf16 (round to nearest even), in the low half.
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
 }
 
 // Level of dense row r (offset[l] <= r < offset[l + 1]).
@@ -149,7 +172,26 @@ struct WeightedRows {
   }
 };
 
-// K1, its fused entry and K3: the run of the row's own key.
+// K3's fused entry's update at column col: the record of C / 2 words at
+// rec + col * C / 2, word j a pair of bf16 values, channel 2j in its low half
+// and 2j + 1 in its high half.  The words are moved as floats (a load or a
+// store keeps every bit) and split as uint32_t, as in Bf16Pairs.
+template <int C>
+struct Bf16Records {
+  const float* __restrict__ rec;
+  __device__ __forceinline__ void load(int64_t col, float (&v)[C]) const {
+    float words[C / 2];
+    load_row<C / 2>(rec + col * (C / 2), words);
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) {
+      const uint32_t bits = __float_as_uint(words[j]);
+      v[2 * j] = __uint_as_float(bits << 16);
+      v[2 * j + 1] = __uint_as_float(bits & 0xFFFF0000u);
+    }
+  }
+};
+
+// K1, its fused entry, K3 and its fused entry: the run of the row's own key.
 // kU loads in flight per thread; the order of the sum does not depend on it.
 template <int C, class Src, int kU>
 struct RunWalk {
@@ -436,6 +478,41 @@ __global__ void __launch_bounds__(kThreads) gather_records_kernel(
   store_vec<kRec>(rec + p * kRec, v);
 }
 
+// K3's fused entry, first pass: a thread per sample (l, s) of the [L, C, n]
+// grads (level stride ldl, channel stride ldc) reads its C grads once and
+// writes the records of its 8 corner columns col = (l * 8 + k) * n + s: word
+// j holds bf16(w[col] * g[l, 2j, s]) in its low half and bf16(w[col] *
+// g[l, 2j + 1, s]) in its high half, each product rounded to f32 first
+// (__fmul_rn, torch's rounding) and then once to bf16.
+template <int C>
+__global__ void __launch_bounds__(kThreads) form_records_kernel(
+    const float* __restrict__ g, int64_t ldl, int64_t ldc,
+    const float* __restrict__ w, int64_t n, int64_t total,
+    float* __restrict__ rec) {
+  constexpr int kW = C / 2;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= total) return;
+  const int64_t l = i / n;
+  const int64_t s = i - l * n;
+  float gv[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) gv[c] = __ldg(g + l * ldl + c * ldc + s);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int64_t col = (l * 8 + k) * n + s;
+    const float wk = __ldg(w + col);
+    float word[kW];
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      word[j] = __uint_as_float(bf16_bits(__fmul_rn(wk, gv[2 * j])) |
+                                (bf16_bits(__fmul_rn(wk, gv[2 * j + 1]))
+                                 << 16));
+    }
+    store_vec<kW>(rec + col * kW, word);
+  }
+}
+
 unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -613,6 +690,40 @@ extern "C" int ucnerf_packed_sum_cm(const void* packed, long long ldp,
                          static_cast<int32_t*>(lists), warp_cap,
                          static_cast<int32_t*>(counts),
                          static_cast<cudaStream_t>(stream));
+    }
+  });
+}
+
+// K3, fused entry.  g, w, n, levels as for K1's fused entry; channels (2, 4
+// or 8) counts the f32 output planes.  records: scratch of levels * 8 * n *
+// channels / 2 words, the records in column order.  Other arguments as for
+// K1.
+extern "C" int ucnerf_wsum_packed_sum_cm(
+    const void* g, long long ldl, long long ldc, const void* w, long long n,
+    long long levels, const void* perm, const void* starts, long long rows,
+    void* out, long long ldo, int channels, void* records, void* lists,
+    long long warp_cap, void* counts, void* stream) {
+  if (rows <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_channels(channels, [&](auto cc) {
+    constexpr int C = decltype(cc)::value;
+    if constexpr (C % 2 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      float* rec = static_cast<float*>(records);
+      if (levels * n > 0) {
+        form_records_kernel<C><<<grid_for(levels * n), kThreads, 0, st>>>(
+            static_cast<const float*>(g), ldl, ldc,
+            static_cast<const float*>(w), n, levels * n, rec);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      RunWalk<C, Bf16Records<C>, kRowUnroll> walk{
+          Bf16Records<C>{rec}, static_cast<const int64_t*>(perm),
+          static_cast<const int32_t*>(starts)};
+      return launch_walk(walk, rows, static_cast<float*>(out), ldo,
+                         static_cast<int32_t*>(lists), warp_cap,
+                         static_cast<int32_t*>(counts), st);
     }
   });
 }

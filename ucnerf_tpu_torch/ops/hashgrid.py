@@ -18,8 +18,9 @@ the scatter kernels, K2
 (``scatter.scatter_add_dense_cm``) for the dense-prefix levels when
 ``bwd_dense_sample`` is on and, for the other levels, K1's fused entry
 (``scatter.scatter_add_wsum_cm``, which forms each update ``w * g`` inside
-the kernel) or, with ``bwd_value_dtype='bfloat16'``, K3
-(``scatter.scatter_add_packed_cm``).  ``tv_loss`` and ``level_sq_means``
+the kernel) or, with ``bwd_value_dtype='bfloat16'``, K3's fused entry
+(``scatter.scatter_add_wsum_packed_cm``, which also rounds each update to
+bf16 there).  ``tv_loss`` and ``level_sq_means``
 have no caller on the ported paths and are not ported.
 """
 
@@ -220,9 +221,9 @@ class _GatherWSum(torch.autograd.Function):
     and corner-0 rows; the rest from the per-level feature grads and corner
     weights, by K1's fused entry in f32 (the corner-expanded ``w * g`` is
     formed inside the kernel and never stored) or, with
-    ``value_dtype='bfloat16'``, by K3 after one bf16 rounding of each update
-    of the corner-expanded ``w * g``.  Each kernel writes every row of its
-    range, so the
+    ``value_dtype='bfloat16'``, by K3's fused entry, which also rounds each
+    update once to bf16 inside the kernel.  Each kernel writes every row of
+    its range, so the
     buffer needs no zeroing, and neither the TPU's tile-offset assembly
     (hashgrid.py:292-319) nor its concatenation of parts (:320-343) has a
     counterpart.
@@ -275,15 +276,11 @@ class _GatherWSum(torch.autograd.Function):
                 keys = torch.cat([(idx[l] + (offsets[l] - dense_rows))
                                   .reshape(-1) for l in range(nd, num_levels)])
                 hashed_rows = spec.table_rows - dense_rows
-                if ctx.value_dtype == "bfloat16":
-                    scatter.scatter_add_packed_cm(
-                        (w[nd:, None] * g[nd:, :, None]).transpose(0, 1)
-                        .reshape(c, -1), keys, hashed_rows,
-                        out=d_table[:, dense_rows:])
-                else:
-                    scatter.scatter_add_wsum_cm(
-                        g[nd:], w[nd:], keys, hashed_rows,
-                        out=d_table[:, dense_rows:])
+                fill = (scatter.scatter_add_wsum_packed_cm
+                        if ctx.value_dtype == "bfloat16"
+                        else scatter.scatter_add_wsum_cm)
+                fill(g[nd:], w[nd:], keys, hashed_rows,
+                     out=d_table[:, dense_rows:])
         if ctx.needs_input_grad[2]:
             d_w = torch.stack([torch.einsum("chs,cs->hs", rows[l], g[l])
                                for l in range(num_levels)])

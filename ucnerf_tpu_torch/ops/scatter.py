@@ -13,6 +13,9 @@ for every sample s of dense level l and every corner k,
 ``out[:, base[s] + off_l(k)] += w_k(bf16(frac[:, s])) * g[:, s]``.
 ``scatter_add_packed_cm`` is K1's sum with every update rounded once to bf16
 and carried to the kernel as pairs in int32 (``pack_bf16_pairs``);
+``scatter_add_wsum_packed_cm`` is K3's fused entry, the same sum over the hash
+encoder's updates with the product, the rounding and the packing inside the
+kernel;
 ``scatter_add_chunked_cm`` is K1's sum over a stream cut into equal chunks
 that are sorted each on its own and summed in chunk order.
 
@@ -207,11 +210,14 @@ def _bind(lib):
     packed = lib.ucnerf_packed_sum_cm
     packed.argtypes = seg.argtypes
     packed.restype = ci
+    wpacked = lib.ucnerf_wsum_packed_sum_cm
+    wpacked.argtypes = wsum.argtypes
+    wpacked.restype = ci
     starts = lib.ucnerf_run_starts
     starts.argtypes = [vp, ll, ll, vp, vp]
     starts.restype = ci
     return {"segment": seg, "wsum": wsum, "dense": dense, "packed": packed,
-            "starts": starts}
+            "wsum_packed": wpacked, "starts": starts}
 
 
 def _bind_chunked(lib):
@@ -319,21 +325,42 @@ def _check_wsum_inputs(g, w, m):
                          f"samples")
 
 
+def _check_wsum_launch(name, g, w, perm, starts, out):
+    """The checks of a fused entry's launch half: CUDA tensors, the
+    encoder's grads and weights, C output planes, a sort of M keys."""
+    _check_cuda(name, g, w, perm, starts, out)
+    m, c, rows = perm.shape[0], g.shape[1], out.shape[1]
+    _check_wsum_inputs(g, w, m)
+    _check_planes("out", out, rows)
+    _check_sorted_runs(perm, starts, m, rows, c)
+    if out.shape[0] != c:
+        raise ValueError(f"out must have {c} planes")
+
+
+def _fused_entry(g, w, keys, num_rows, out, plain, launch):
+    """A fused entry on (g, w, keys): its plain version on the CPU; on the
+    card the checks, the sort of the keys and ``launch``."""
+    if not g.device == w.device == keys.device:
+        raise ValueError(f"g on {g.device}, w on {w.device}, keys on "
+                         f"{keys.device}")
+    if g.device.type == "cpu":
+        return plain(g, w, keys, num_rows, out)
+    if keys.dtype != torch.int32 or keys.dim() != 1:
+        raise ValueError("keys must be an int32 [M] tensor")
+    _check_wsum_inputs(g, w, keys.shape[0])
+    out = _out_buffer(out, g.shape[1], num_rows, g.device)
+    perm, starts = sort_rows(keys, num_rows)
+    return launch(g, w, perm, starts, out)
+
+
 def wsum_sum_cm(g, w, perm, starts, out):
     """Launch K1's fused entry on a prepared sort of the keys
     (``sort_rows``): out[:, r] = the sum over the run of row r of
     w[col] * g[l, :, s], col = perm[p] = (l * 8 + k) * N + s.  The grads are
     first interleaved into a [L, N, C] scratch (one streaming pass), so an
     update reads one weight word and one C-float row."""
-    _check_cuda("wsum_sum_cm", g, w, perm, starts, out)
-    m = perm.shape[0]
-    _check_wsum_inputs(g, w, m)
-    levels, c, n = g.shape
-    rows = out.shape[1]
-    _check_planes("out", out, rows)
-    _check_sorted_runs(perm, starts, m, rows, c)
-    if out.shape[0] != c:
-        raise ValueError(f"out must have {c} planes")
+    _check_wsum_launch("wsum_sum_cm", g, w, perm, starts, out)
+    m, (levels, c, n), rows = perm.shape[0], g.shape, out.shape[1]
     if rows == 0:
         return out
     grads = torch.empty((levels * n * c,), dtype=torch.float32,
@@ -372,17 +399,8 @@ def scatter_add_wsum_cm(g, w, keys, num_rows: int, out=None):
     Returns:
       out, or a new [C, num_rows] float32 tensor.
     """
-    if not g.device == w.device == keys.device:
-        raise ValueError(f"g on {g.device}, w on {w.device}, keys on "
-                         f"{keys.device}")
-    if g.device.type == "cpu":
-        return scatter_add_wsum_cm_plain(g, w, keys, num_rows, out)
-    if keys.dtype != torch.int32 or keys.dim() != 1:
-        raise ValueError("keys must be an int32 [M] tensor")
-    _check_wsum_inputs(g, w, keys.shape[0])
-    out = _out_buffer(out, g.shape[1], num_rows, g.device)
-    perm, starts = sort_rows(keys, num_rows)
-    return wsum_sum_cm(g, w, perm, starts, out)
+    return _fused_entry(g, w, keys, num_rows, out, scatter_add_wsum_cm_plain,
+                        wsum_sum_cm)
 
 
 scatter_add_wsum_cm.launches = 0
@@ -550,6 +568,72 @@ def scatter_add_packed_cm(values, idx, num_rows: int, *, out=None):
 
 
 scatter_add_packed_cm.launches = 0
+
+
+def scatter_add_wsum_packed_cm_plain(g, w, keys, num_rows: int, out=None):
+    """Plain version of K3's fused entry: K3's plain version on the updates
+    ``w * g`` formed and laid out in torch (``_wsum_values``)."""
+    return scatter_add_packed_cm_plain(_wsum_values(g, w), keys, num_rows,
+                                       out)
+
+
+def wsum_packed_sum_cm(g, w, perm, starts, out):
+    """Launch K3's fused entry on a prepared sort of the keys
+    (``sort_rows``): out[:, r] = the f32 sum over the run of row r of
+    bf16(w[col] * g[l, :, s]), col = perm[p] = (l * 8 + k) * N + s.
+
+    One pass forms, rounds and packs every update into a record of C / 2
+    words at its column (8 bytes at C = 4); the walk reads the records
+    through ``perm`` and sums in K1's order."""
+    _check_wsum_launch("wsum_packed_sum_cm", g, w, perm, starts, out)
+    m, (levels, c, n), rows = perm.shape[0], g.shape, out.shape[1]
+    if c not in (2, 4, 8):
+        raise ValueError(f"{c} channels: K3's fused entry takes 2, 4 or 8")
+    if rows == 0:
+        return out
+    records = torch.empty((m * c // 2,), dtype=torch.int32, device=g.device)
+    lists, warp_cap, counts = _tier_scratch(rows, m, RUN_TIERS, g.device)
+    with torch.cuda.device(g.device):
+        fn = _bind(build.load("scatter"))["wsum_packed"]
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = fn(g.data_ptr(), g.stride(0), g.stride(1), w.data_ptr(), n,
+                 levels, perm.data_ptr(), starts.data_ptr(), rows,
+                 out.data_ptr(), out.stride(0), c, records.data_ptr(),
+                 lists.data_ptr(), warp_cap, counts.data_ptr(), stream)
+    _raise_on(err, "fused packed scatter")
+    scatter_add_wsum_packed_cm.launches += 1
+    return out
+
+
+def scatter_add_wsum_packed_cm(g, w, keys, num_rows: int, out=None):
+    """K3's fused entry: K3 over the hash encoder's corner updates, with each
+    update ``w[l, k, s] * g[l, :, s]`` formed, rounded once to bf16 and
+    packed inside the kernel.
+
+    The same function as
+    ``scatter_add_packed_cm(_wsum_values(g, w), keys, ...)``, bit for bit
+    on the card (the product with torch's f32 rounding, then one
+    round-to-nearest-even to bf16, summed in f32 in K1's order); neither the
+    ``[C, L*8*N]`` values nor the ``[C/2, M]`` packed planes are built.
+
+    Args:
+      g: [L, C, N] float32 feature grads of L levels (samples contiguous),
+        C 2, 4 or 8.
+      w: [L, 8, N] float32 corner weights, contiguous.
+      keys: [L*8*N] int32 rows in [0, num_rows), level-major, then corner,
+        then sample (the encoder's level-offset corner rows).
+      num_rows: output rows.
+      out: optional [C, num_rows] float32 view with contiguous rows to write
+        into; every row of it is written.
+
+    Returns:
+      out, or a new [C, num_rows] float32 tensor.
+    """
+    return _fused_entry(g, w, keys, num_rows, out,
+                        scatter_add_wsum_packed_cm_plain, wsum_packed_sum_cm)
+
+
+scatter_add_wsum_packed_cm.launches = 0
 
 
 def scatter_add_chunked_cm_plain(values, idx, num_rows: int):

@@ -13,6 +13,7 @@ activation peak at the piece's size), and reassembles numpy arrays.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -139,28 +140,43 @@ def make_train_step(model: UCNeRFModel, config: Config):
     return train_step
 
 
+def hex_basis(seed: int, n: int) -> torch.Tensor:
+    """The eval step's hex-basis vectors for a chunk of n rays: [n, 3]
+    normals on the CPU from a generator seeded from (seed, n)."""
+    mixed = np.random.SeedSequence((seed, n)).generate_state(1, np.uint64)[0]
+    generator = torch.Generator().manual_seed(int(mixed >> np.uint64(1)))
+    return torch.randn((n, 3), generator=generator)
+
+
 def make_eval_step(model: UCNeRFModel, config: Config,
                    compute_extras: bool = True, seed: int = 0):
     """Build the eval render step over one flat ray chunk.
 
     Returns ``eval_step(batch, train_frac, eval_camidx, rand_vec=None)``:
     batch is a dict of [N, ...] tensors on the model's device; rand_vec
-    ([N, 3]) fixes the hex basis and, when None, is drawn from a
-    ``torch.Generator`` on the model's device seeded with `seed` (one draw
-    per sub-chunk).  The ``grid_bwd_*`` config knobs only shape a backward
-    pass and are ignored, as in the JAX package.  Returns the final level's
-    rendering: rgb [N, 3], depth and acc [N] and, with compute_extras, the
-    ``distance_*`` statistics.
+    ([N, 3]) fixes the hex basis and, when None, is ``hex_basis(seed, n)``
+    for each (sub-)chunk of n rays: drawn on the CPU from a
+    ``torch.Generator`` seeded from (`seed`, n), moved to the model's device
+    and kept there for the next chunk of that size.  So, as in the JAX
+    package (``PRNGKey(0)`` with ``key=None``), the basis depends on the
+    chunk's shape alone, and a render is a function of the weights and the
+    rays: the same on every call and on every device.  The ``grid_bwd_*``
+    config knobs only shape a backward pass and are ignored, as in the JAX
+    package.  Returns the final level's rendering: rgb [N, 3], depth and acc
+    [N] and, with compute_extras, the ``distance_*`` statistics.
     """
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(seed)
     sub = max(config.render_subchunks, 1)
+
+    # A render holds a few chunk sizes: full chunks, their sub-chunks and a
+    # last, shorter chunk.
+    @functools.lru_cache(maxsize=8)
+    def basis(n):
+        return hex_basis(seed, n).to(device)
 
     def eval_one(batch, train_frac, eval_camidx, rand_vec):
         if rand_vec is None:
-            n = batch["origins"].shape[0]
-            rand_vec = torch.randn((n, 3), generator=generator,
-                                   device=device)
+            rand_vec = basis(batch["origins"].shape[0])
         renderings, _ = model(batch, train_frac, rand_vec,
                               compute_extras=compute_extras,
                               eval_camidx=eval_camidx)
