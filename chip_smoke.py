@@ -57,7 +57,17 @@ Phases:
      scene (``--preset synthetic_quality`` with the bf16 backward): 30
      steps, a test render, checkpoints, then a second call that resumes at
      step 30 and ends at 40;
-  10. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+  10. serving phase, on the CLI phase's step-40 checkpoint, each entry
+     point in-process with its launches counted from 0 (K4 only, all
+     through the fused entry): ``cli.eval`` on every test view with the ray
+     histograms (finite metric dumps; view 0's PSNR bitwise this phase's
+     own ``render_image`` + ``MetricHarness``), ``cli.render`` of an
+     8-frame path (and a second call that skips all 8), ``cli.tsdf`` at
+     256^3 over 8 training views and ``cli.extract`` at 256^3 (PLY meshes
+     with faces); an extract density chunk and the mesh's vertex colors on
+     the card against a CPU copy of the model; K4's two entry points held
+     and timed on the corner indices one extract chunk hands a NeRF level;
+  11. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
      as the last line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -130,6 +140,20 @@ K5_CHUNKS = (1, 24)
 CLI_STEPS = (30, 40)
 CLI_CHECKPOINT_EVERY = 20
 CLI_PRINT_EVERY = 10
+# The serving phase: frames of the render path (Config.render_path_frames,
+# cut from 120), training views fused by cli.tsdf (cut from all 35), the
+# grid resolution of cli.extract and cli.tsdf (the CLIs' default), the
+# density iso level of cli.extract, and the grid points and vertices of the
+# extract field's GPU-vs-CPU check (held to the render check's tolerance).
+# After 40 steps the field's density is still near its initial
+# softplus(density_bias) = 0.313 everywhere (0.302 to 0.313 over the 256^3
+# grid on the H100): the iso level sits inside that range, where the
+# CLI's default of 20 (for a trained scene) meshes nothing.
+SERVE_FRAMES = 8
+SERVE_TSDF_VIEWS = 8
+EXTRACT_RES = 256
+EXTRACT_ISO = 0.31
+FIELD_CHECK_POINTS = 8192
 # GPU-vs-CPU tolerance on the 64-ray gradient check (TF32 off): loss terms
 # agree to summation order (rtol 1e-4); gradients are sums over samples with
 # cancellation and pass through the resampling, so rtol 1e-3 and an atol of
@@ -1041,29 +1065,57 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
     return res, eval_step, views, cfg, model
 
 
-def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
-                     k4):
-    """K4's two entry points on the corner indices and weights of one render
-    chunk: those of the proposal level and of the NeRF level with the most
-    rows touched.  Recorded from the encoder's own calls.  Then the
-    interleave of each grid's table, level by level and in one pass."""
+def record_k4_calls(torch, gather, hashgrid, run):
+    """(table, idx, w) of every fused K4 call the encoder makes in run(),
+    each launched as usual."""
     recorded = []
 
     def recorder(table, idx, w, bf16=False):
         recorded.append((table.detach(), idx, w))
         return gather.take_wsum_cm(table, idx, w, bf16=bf16)
 
-    batch = {k: torch.from_numpy(np.array(
-        v.reshape((-1,) + v.shape[2:])[:cfg.render_chunk_size])).cuda()
-        for k, v in view.items()}
     # The encoder reaches the kernels through its module's `gather` name.
     hashgrid.gather = types.SimpleNamespace(take_cm=gather.take_cm,
                                             take_wsum_cm=recorder)
     try:
-        eval_step(batch, 1.0, 0)
+        run()
     finally:
         hashgrid.gather = gather
     torch.cuda.synchronize()
+    return recorded
+
+
+def most_rows(torch, calls):
+    """The recorded call whose indices touch the most rows."""
+    return max(calls, key=lambda t: int(torch.unique(t[1]).numel()))
+
+
+def hold_k4(torch, gather, table, idx, w, gen, label, print_label):
+    """K4's two entry points held against their plain versions on recorded
+    indices and weights (take_cm bitwise, take_wsum_cm within WSUM_ULPS and
+    bitwise take_cm for one-hot weights), then timed."""
+    check(torch.equal(gather.take_cm(table, idx),
+                      gather.take_cm_plain(table, idx)),
+          f"take_cm on the {label}'s indices differs from its plain version")
+    err, ulp = check_wsum(torch, gather, table, idx, w, label)
+    check_one_hot(torch, gather, table, idx, gen, label)
+    take, wsum = k4_times(torch, gather, table, idx, w)
+    print_k4(print_label, take, wsum)
+    wsum.update(max_abs_err=err, max_err_ulp_of_sum_abs=ulp)
+    return take, wsum
+
+
+def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
+                     k4):
+    """K4's two entry points on the corner indices and weights of one render
+    chunk: those of the proposal level and of the NeRF level with the most
+    rows touched.  Recorded from the encoder's own calls.  Then the
+    interleave of each grid's table, level by level and in one pass."""
+    batch = {k: torch.from_numpy(np.array(
+        v.reshape((-1,) + v.shape[2:])[:cfg.render_chunk_size])).cuda()
+        for k, v in view.items()}
+    recorded = record_k4_calls(torch, gather, hashgrid,
+                               lambda: eval_step(batch, 1.0, 0))
     by_n = {}
     for table, idx, w in recorded:
         by_n.setdefault(idx.shape[1], []).append((table, idx, w))
@@ -1073,17 +1125,8 @@ def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
     gen = torch.Generator(device="cuda").manual_seed(10)
     calls = []
     for grid, n in zip(("nerf", "proposal"), sorted(by_n)):
-        table, idx, w = max(by_n[n], key=lambda t: int(torch.unique(
-            t[1]).numel()))
-        check(torch.equal(gather.take_cm(table, idx),
-                          gather.take_cm_plain(table, idx)),
-              f"take_cm on the {grid} level's indices differs from its "
-              f"plain version")
-        err, ulp = check_wsum(torch, gather, table, idx, w, f"{grid} level")
-        check_one_hot(torch, gather, table, idx, gen, f"{grid} level")
-        take, wsum = k4_times(torch, gather, table, idx, w)
-        print_k4(f"real {grid} level", take, wsum)
-        wsum.update(max_abs_err=err, max_err_ulp_of_sum_abs=ulp)
+        take, wsum = hold_k4(torch, gather, *most_rows(torch, by_n[n]), gen,
+                             f"{grid} level", f"real {grid} level")
         calls.append({"grid": grid, "take_cm": take, "take_wsum_cm": wsum})
     k4["real_indices"] = calls
     # What the other placement of the interleave would cost: the wrappers
@@ -1432,13 +1475,13 @@ def steady_windows(logged, start, render_every):
     return steady
 
 
-def cli_phase(torch, gather, scatter, cli_train, batch_size):
+def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
     """The training entry point in-process on the synthetic scene, with the
-    bf16 backward: train, test render, checkpoints, then resume.  Two rates
-    come out: the one the CLI logs, over the steady windows alone
-    (`steady_windows`), and steps x batch_size over the seconds of each
-    whole call, with its set-up, test render and saves."""
-    exp = tempfile.mkdtemp(prefix="ucnerf_cli_")
+    bf16 backward: train, test render, checkpoints, then resume, in the
+    experiment folder `exp` (the serving phase goes on from its last
+    checkpoint).  Two rates come out: the one the CLI logs, over the steady
+    windows alone (`steady_windows`), and steps x batch_size over the
+    seconds of each whole call, with its set-up, test render and saves."""
     first, second = CLI_STEPS
     argv = ["--preset", "synthetic_quality",
             "-b", 'NerfMLP.grid_bwd_value_dtype = "bfloat16"',
@@ -1450,82 +1493,311 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size):
             "-b", "Config.lr_delay_steps = 0"]
     log_path = os.path.join(exp, "log_train.txt")
     microbatches, levels = 2, 16  # of the preset; 6 proposal + 10 NeRF levels
-    try:
-        results = []
-        offset = 0
-        for max_steps, start in ((first, 0), (second, first)):
-            reset_launches(gather, scatter)
-            t0 = time.perf_counter()
-            cli_train.main(argv + ["--max-steps", str(max_steps)])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = read_launches(gather, scatter)
-            check_fused_entry(gather, f"CLI --max-steps {max_steps}")
-            with open(log_path) as f:
-                f.seek(offset)
-                log = f.read()
-                offset = f.tell()
-            steps = max_steps - start
-            lines = {int(a): (float(b), float(c), float(d)) for a, b, c, d in
-                     re.findall(r"step (\d+)/\d+: loss=(\S+) psnr=(\S+) "
-                                r"(\d+) rays/s", log)}
-            check(max(lines) == max_steps and min(lines) == start + 1,
-                  f"CLI logged steps {sorted(lines)}, expected {start + 1} "
-                  f"to {max_steps}")
-            check(all(np.isfinite(v).all() for v in lines.values()),
-                  f"CLI: non-finite log values {lines}")
-            check(("resumed from step %d" % start in log) == bool(start),
-                  f"CLI: resume line wrong for a start at step {start}")
-            kept = sorted(os.listdir(os.path.join(exp, "checkpoints")))
-            # checkpoints_total_limit is 1 in the preset: only the final
-            # save is left, the one at step 20 was pruned.
-            check(kept == [str(max_steps)],
-                  f"CLI: checkpoints {kept}, expected [{max_steps}]")
-            check(launches["K3"] == steps * microbatches * 2
-                  and launches["K3_fused"] == launches["K3"]
-                  and launches["K3_planar"] == 0
-                  and launches["K2"] == steps * microbatches * 2
-                  and launches["starts"] == steps * microbatches * 4
-                  and launches["K1"] == 0,
-                  f"CLI: launches {launches} in {steps} steps of "
-                  f"{microbatches} microbatches")
-            steady = {k: lines[k][2]
-                      for k in steady_windows(lines, start, first)}
-            results.append({"max_steps": max_steps, "seconds": secs,
-                            "launches": launches, "log": lines,
-                            "steady_window_rays_per_s": steady,
-                            "call_rays_per_s": steps * batch_size / secs})
-            print(f"[cli] --max-steps {max_steps} from step {start}: "
-                  f"{secs:.1f} s, {steps * batch_size / secs:.1f} rays/s "
-                  f"over the whole call (set-up, render and saves "
-                  f"included), launches {launches}, logged rays/s of the "
-                  f"steady windows (ending at these steps) {steady}, of "
-                  f"every window (first steps, render and saves included) "
-                  f"{ {k: v[2] for k, v in lines.items()} }, loss "
-                  f"{ {k: v[0] for k, v in lines.items()} }, checkpoints "
-                  f"{kept}", flush=True)
-            if not start:
-                check(lines[max_steps][0] < lines[1][0],
-                      f"CLI: loss {lines[max_steps][0]} at step {max_steps} "
-                      f"not below {lines[1][0]} at step 1")
-                render = re.search(r"test render \d+: psnr=(\S+) "
-                                   r"ssim=(\S+) \((\S+)s\)", log)
-                check(render is not None
-                      and np.isfinite(float(render.group(1))),
-                      "CLI: no test render with a finite PSNR in the log")
-                chunks = (launches["K4"] - steps * microbatches * levels)
-                check(chunks > 0 and chunks % levels == 0,
-                      f"CLI: K4 launched {launches['K4']} times; the test "
-                      f"render's share {chunks} is no multiple of {levels}")
-                results[-1].update(test_psnr=float(render.group(1)),
-                                   test_ssim=float(render.group(2)),
-                                   render_seconds=float(render.group(3)))
-                print(f"[cli] test render psnr {render.group(1)} ssim "
-                      f"{render.group(2)} in {render.group(3)} s "
-                      f"({chunks // levels} chunks)", flush=True)
-        return results
-    finally:
-        shutil.rmtree(exp, ignore_errors=True)
+    results = []
+    offset = 0
+    for max_steps, start in ((first, 0), (second, first)):
+        reset_launches(gather, scatter)
+        t0 = time.perf_counter()
+        cli_train.main(argv + ["--max-steps", str(max_steps)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches(gather, scatter)
+        check_fused_entry(gather, f"CLI --max-steps {max_steps}")
+        with open(log_path) as f:
+            f.seek(offset)
+            log = f.read()
+            offset = f.tell()
+        steps = max_steps - start
+        lines = {int(a): (float(b), float(c), float(d)) for a, b, c, d in
+                 re.findall(r"step (\d+)/\d+: loss=(\S+) psnr=(\S+) "
+                            r"(\d+) rays/s", log)}
+        check(max(lines) == max_steps and min(lines) == start + 1,
+              f"CLI logged steps {sorted(lines)}, expected {start + 1} "
+              f"to {max_steps}")
+        check(all(np.isfinite(v).all() for v in lines.values()),
+              f"CLI: non-finite log values {lines}")
+        check(("resumed from step %d" % start in log) == bool(start),
+              f"CLI: resume line wrong for a start at step {start}")
+        kept = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        # checkpoints_total_limit is 1 in the preset: only the final
+        # save is left, the one at step 20 was pruned.
+        check(kept == [str(max_steps)],
+              f"CLI: checkpoints {kept}, expected [{max_steps}]")
+        check(launches["K3"] == steps * microbatches * 2
+              and launches["K3_fused"] == launches["K3"]
+              and launches["K3_planar"] == 0
+              and launches["K2"] == steps * microbatches * 2
+              and launches["starts"] == steps * microbatches * 4
+              and launches["K1"] == 0,
+              f"CLI: launches {launches} in {steps} steps of "
+              f"{microbatches} microbatches")
+        steady = {k: lines[k][2]
+                  for k in steady_windows(lines, start, first)}
+        results.append({"max_steps": max_steps, "seconds": secs,
+                        "launches": launches, "log": lines,
+                        "steady_window_rays_per_s": steady,
+                        "call_rays_per_s": steps * batch_size / secs})
+        print(f"[cli] --max-steps {max_steps} from step {start}: "
+              f"{secs:.1f} s, {steps * batch_size / secs:.1f} rays/s "
+              f"over the whole call (set-up, render and saves "
+              f"included), launches {launches}, logged rays/s of the "
+              f"steady windows (ending at these steps) {steady}, of "
+              f"every window (first steps, render and saves included) "
+              f"{ {k: v[2] for k, v in lines.items()} }, loss "
+              f"{ {k: v[0] for k, v in lines.items()} }, checkpoints "
+              f"{kept}", flush=True)
+        if not start:
+            check(lines[max_steps][0] < lines[1][0],
+                  f"CLI: loss {lines[max_steps][0]} at step {max_steps} "
+                  f"not below {lines[1][0]} at step 1")
+            render = re.search(r"test render \d+: psnr=(\S+) "
+                               r"ssim=(\S+) \((\S+)s\)", log)
+            check(render is not None
+                  and np.isfinite(float(render.group(1))),
+                  "CLI: no test render with a finite PSNR in the log")
+            chunks = (launches["K4"] - steps * microbatches * levels)
+            check(chunks > 0 and chunks % levels == 0,
+                  f"CLI: K4 launched {launches['K4']} times; the test "
+                  f"render's share {chunks} is no multiple of {levels}")
+            results[-1].update(test_psnr=float(render.group(1)),
+                               test_ssim=float(render.group(2)),
+                               render_seconds=float(render.group(3)))
+            print(f"[cli] test render psnr {render.group(1)} ssim "
+                  f"{render.group(2)} in {render.group(3)} s "
+                  f"({chunks // levels} chunks)", flush=True)
+    return results
+
+
+def serving_cli(torch, gather, scatter, label, main, argv):
+    """One serving or extraction CLI in-process, its launches counted from
+    0 just before it: K4 only, all through the fused entry, and no backward
+    kernel.  Returns (seconds, launches)."""
+    reset_launches(gather, scatter)
+    t0 = time.perf_counter()
+    main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(gather, scatter)
+    check_fused_entry(gather, label)
+    check(launches["K4"] > 0 and all(
+        n == 0 for k, n in launches.items() if not k.startswith("K4")),
+          f"{label}: launches {launches}; expected K4 alone")
+    return secs, launches
+
+
+def ply_header(path):
+    """(vertex count, face count, header length) of a binary PLY."""
+    with open(path, "rb") as f:
+        head = f.read(1024)
+    end = head.index(b"end_header\n") + len(b"end_header\n")
+    counts = dict(re.findall(rb"element (\w+) (\d+)", head[:end]))
+    return int(counts[b"vertex"]), int(counts[b"face"]), end
+
+
+def read_ply_vertices(path, n):
+    """The first n vertices (xyz, rgb) of a PLY that write_ply wrote with
+    colors."""
+    n_v, _, end = ply_header(path)
+    rec = np.fromfile(path, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)],
+                      count=min(n, n_v), offset=end)
+    return rec["xyz"], rec["rgb"]
+
+
+def serving_phase(torch, gather, scatter, hashgrid, configs, step, exp, k4):
+    """The serving and extraction entry points in-process on the CLI
+    phase's step-40 checkpoint of ``synthetic_quality`` (the canonical
+    architecture at full width): cli.eval on every test view, cli.render
+    of a SERVE_FRAMES-frame path (and a second call that renders nothing),
+    cli.tsdf at 256^3 over SERVE_TSDF_VIEWS training views and cli.extract
+    at 256^3.  Each CLI's launches are counted from 0 just before it.
+    Checks what each writes; holds eval's first PSNR bitwise against this
+    phase's own render, an extract density chunk and vertex colors against
+    a CPU copy of the model, and K4 on the indices one extract chunk hands
+    a NeRF level."""
+    from ucnerf_tpu_torch.cli import eval as cli_eval
+    from ucnerf_tpu_torch.cli import extract as cli_extract
+    from ucnerf_tpu_torch.cli import render as cli_render
+    from ucnerf_tpu_torch.cli import tsdf as cli_tsdf
+    from ucnerf_tpu_torch.data import datasets
+    from ucnerf_tpu_torch.ops import coord
+    from ucnerf_tpu_torch.train import checkpoints as ckpt_lib
+    from ucnerf_tpu_torch.utils import image as image_lib
+
+    ckpt_step = CLI_STEPS[-1]
+    binding = f"Config.exp_name = {exp!r}"
+    argv = ["--preset", "synthetic_quality", "-b", binding]
+    cfg = configs.load_config("synthetic_quality", [binding])
+    test = datasets.load_dataset("test", cfg)
+    view_rays = test.width * test.height
+    res, paths = {}, {}
+
+    # cli.eval on every test view, with the ray histograms.
+    secs, paths["cli_eval"] = serving_cli(
+        torch, gather, scatter, "cli eval", cli_eval.main,
+        argv + ["--ray-histograms"])
+    metrics = {}
+    for key in ("psnr", "ssim", "psnr_cc", "ssim_cc"):
+        with open(os.path.join(exp, f"{key}_{ckpt_step}.txt")) as f:
+            metrics[key] = [float(v) for v in f.read().split()]
+        check(len(metrics[key]) == test.n_examples
+              and np.isfinite(metrics[key]).all(),
+              f"cli eval: {key}_{ckpt_step}.txt holds {metrics[key]}")
+    preds = set(os.listdir(os.path.join(exp, "test_preds")))
+    want = {f"{t}_{i:03d}.png" for t in ("color", "depth", "acc")
+            for i in range(test.n_examples)}
+    want |= {"ray_colors_000.png", "ray_weights_000.png"}
+    check(want <= preds, f"cli eval: missing {sorted(want - preds)}")
+    with open(os.path.join(exp, "log_eval.txt")) as f:
+        logged = [float(r) for r in re.findall(r"\((\d+) rays/s\)", f.read())]
+    # The first view again, through a model of this phase's own.
+    model = step.init_model(cfg, seed=0, device="cuda")
+    check(ckpt_lib.restore_model(exp, model) == ckpt_step,
+          "the CLI phase's checkpoint is not at its last step")
+    batch = test.image_batch(0)
+    rendering = step.render_image(
+        step.make_eval_step(model, cfg), batch, cfg, train_frac=1.0,
+        eval_camidx=cli_eval._eval_camidx(cfg, 0, test.cam_num))
+    psnr = image_lib.MetricHarness()(
+        np.clip(rendering["rgb"], 0, 1), batch["rgb"],
+        quantize=cfg.eval_quantize_metrics)["psnr"]
+    check(psnr == metrics["psnr"][0],
+          f"cli eval: view 0 PSNR {metrics['psnr'][0]!r}, the phase's own "
+          f"render of it {psnr!r}")
+    res["cli_eval"] = {
+        "seconds": secs, "views": test.n_examples,
+        "rays_per_s": test.n_examples * view_rays / secs,
+        "logged_rays_per_s": logged, "metrics": metrics}
+    print(f"[serve] cli.eval: {test.n_examples} views of {test.width}x"
+          f"{test.height} in {secs:.2f} s, "
+          f"{res['cli_eval']['rays_per_s']:.1f} rays/s over the call "
+          f"(logged per view {logged}); psnr {metrics['psnr']}, ssim "
+          f"{metrics['ssim']}, psnr_cc {metrics['psnr_cc']}; view 0's PSNR "
+          f"bitwise the phase's own render; launches {paths['cli_eval']}",
+          flush=True)
+
+    # cli.render: SERVE_FRAMES frames of the keyframe path, then again.
+    render_argv = argv + ["-b", f"Config.render_path_frames = {SERVE_FRAMES}"]
+    secs, paths["cli_render"] = serving_cli(
+        torch, gather, scatter, "cli render", cli_render.main, render_argv)
+    out_dir = os.path.join(exp, "render", f"path_renders_step_{ckpt_step}")
+    frames = sorted(os.listdir(out_dir))
+    check(frames == sorted(f"{t}_{i:03d}.png" for t in ("color", "depth",
+                                                        "acc")
+                           for i in range(SERVE_FRAMES)),
+          f"cli render wrote {frames}")
+    log_path = os.path.join(exp, "log_render.txt")
+    before = os.path.getsize(log_path)
+    reset_launches(gather, scatter)
+    cli_render.main(render_argv)
+    with open(log_path) as f:
+        f.seek(before)
+        skipped = f.read().count("already exists, skipping")
+    check(skipped == SERVE_FRAMES
+          and read_launches(gather, scatter)["K4"] == 0,
+          f"cli render again: {skipped} frames skipped, K4 launched "
+          f"{read_launches(gather, scatter)['K4']} times")
+    res["cli_render"] = {"seconds": secs, "frames": SERVE_FRAMES,
+                         "rays_per_s": SERVE_FRAMES * view_rays / secs}
+    print(f"[serve] cli.render: {SERVE_FRAMES} frames of {test.width}x"
+          f"{test.height} in {secs:.2f} s, "
+          f"{res['cli_render']['rays_per_s']:.1f} rays/s over the call; a "
+          f"second call skipped all {SERVE_FRAMES}; launches "
+          f"{paths['cli_render']}", flush=True)
+
+    # cli.tsdf at 256^3 over the first SERVE_TSDF_VIEWS training views.
+    tsdf_ply = os.path.join(exp, "tsdf.ply")
+    secs, paths["cli_tsdf"] = serving_cli(
+        torch, gather, scatter, "cli tsdf", cli_tsdf.main,
+        argv + ["--resolution", str(EXTRACT_RES), "--max-views",
+                str(SERVE_TSDF_VIEWS), "--out", tsdf_ply])
+    n_v, n_f, _ = ply_header(tsdf_ply)
+    check(n_f > 0, f"cli tsdf: a mesh of {n_v} vertices and {n_f} faces")
+    res["cli_tsdf"] = {"seconds": secs, "views": SERVE_TSDF_VIEWS,
+                       "vertices": n_v, "faces": n_f}
+    print(f"[serve] cli.tsdf: {SERVE_TSDF_VIEWS} views into {EXTRACT_RES}^3 "
+          f"in {secs:.2f} s: {n_v} vertices, {n_f} faces; launches "
+          f"{paths['cli_tsdf']}", flush=True)
+
+    # cli.extract at 256^3.
+    mesh_ply = os.path.join(exp, "mesh.ply")
+    secs, paths["cli_extract"] = serving_cli(
+        torch, gather, scatter, "cli extract", cli_extract.main,
+        argv + ["--resolution", str(EXTRACT_RES), "--iso-density",
+                str(EXTRACT_ISO), "--out", mesh_ply])
+    with open(os.path.join(exp, "log_extract.txt")) as f:
+        log = f.read()
+    check(os.path.exists(mesh_ply),
+          f"cli extract wrote no mesh at --iso-density {EXTRACT_ISO}: "
+          f"{re.findall(r'density range: .*', log)}")
+    n_v, n_f, _ = ply_header(mesh_ply)
+    check(n_f > 0, f"cli extract: a mesh of {n_v} vertices and {n_f} faces")
+    points = EXTRACT_RES**3
+    chunks = -(-points // cli_extract.POINT_CHUNK)
+    res["cli_extract"] = {
+        "seconds": secs, "resolution": EXTRACT_RES, "iso": EXTRACT_ISO,
+        "points_per_s": points / secs, "vertices": n_v, "faces": n_f,
+        "density_range": re.findall(r"density range: (.*)", log)}
+    print(f"[serve] cli.extract: {EXTRACT_RES}^3 = {points} points in "
+          f"{chunks} chunks, in {secs:.2f} s ({points / secs:.1f} points/s "
+          f"over the call), iso {EXTRACT_ISO}, "
+          f"{res['cli_extract']['density_range']}: {n_v} vertices, {n_f} "
+          f"faces; launches {paths['cli_extract']}", flush=True)
+
+    # One extract chunk and vertex colors: the card against a CPU copy of
+    # the model (plain versions of the kernels), on the same world points.
+    cpu_model = copy.deepcopy(model).cpu()
+    lin = cli_extract.grid_axis(EXTRACT_RES, 2.0)
+    i0 = (EXTRACT_RES // 2) * EXTRACT_RES**2  # the slice through the origin
+    pts = coord.inv_contract(cli_extract.grid_points(
+        lin, i0, i0 + FIELD_CHECK_POINTS, "cpu"))
+    verts, rgb_u8 = read_ply_vertices(mesh_ply, FIELD_CHECK_POINTS)
+    verts = torch.from_numpy(np.ascontiguousarray(verts))
+    errs = {}
+    for name, fn, x in (("density", cli_extract.density_of_world, pts),
+                        ("vertex_rgb", cli_extract.color_of_world, verts)):
+        gpu = fn(model, x.cuda()).cpu().numpy()
+        cpu = fn(cpu_model, x).numpy()
+        errs[name] = float(np.abs(gpu - cpu).max())
+        check(np.isfinite(gpu).all() and np.allclose(
+            gpu, cpu, rtol=RENDER_RTOL, atol=RENDER_ATOL),
+              f"extract {name} on {len(x)} points: GPU vs CPU max abs err "
+              f"{errs[name]}")
+        if name == "vertex_rgb":
+            # What the CLI wrote is the field's color, quantized.
+            ply_err = int(np.abs((np.clip(gpu, 0, 1) * 255).astype(np.int64)
+                                 - rgb_u8).max())
+            check(ply_err <= 1, f"extract: PLY colors {ply_err} levels off "
+                  f"the field's")
+    res["cli_extract"]["gpu_vs_cpu_max_abs_err"] = errs
+    print(f"[serve] extract field on the card vs the CPU: "
+          f"{FIELD_CHECK_POINTS} grid points and {len(verts)} vertices, max "
+          f"abs err {errs} (atol {RENDER_ATOL}, rtol {RENDER_RTOL})",
+          flush=True)
+    del cpu_model
+
+    # K4 on the corner indices and weights one extract chunk (the one
+    # through the origin) hands each NeRF level, recorded from the
+    # encoder's own calls; held and timed at the level with most rows
+    # touched.
+    c0 = i0 // cli_extract.POINT_CHUNK * cli_extract.POINT_CHUNK
+    chunk_pts = coord.inv_contract(cli_extract.grid_points(
+        lin, c0, c0 + cli_extract.POINT_CHUNK, "cuda"))
+    recorded = record_k4_calls(
+        torch, gather, hashgrid,
+        lambda: cli_extract.density_of_world(model, chunk_pts))
+    check(len(recorded) == cfg.nerf_mlp.grid_num_levels
+          and all(i.shape == (8, 6 * cli_extract.POINT_CHUNK)
+                  for _, i, _ in recorded),
+          f"an extract chunk's K4 calls: {[i.shape for _, i, _ in recorded]}")
+    take, wsum = hold_k4(torch, gather, *most_rows(torch, recorded),
+                         torch.Generator(device="cuda").manual_seed(11),
+                         "extract level", "extract NeRF level")
+    del recorded
+    k4["extract_indices"] = {"points": cli_extract.POINT_CHUNK,
+                             "take_cm": take, "take_wsum_cm": wsum}
+    del model, chunk_pts
+    torch.cuda.empty_cache()
+    return res, paths
 
 
 def grad_check_phase(torch, losses_lib, model, cfg, batch):
@@ -1753,17 +2025,26 @@ def main(argv=None):
     del initial, batch
     torch.cuda.empty_cache()
 
-    cli_res = cli_phase(torch, gather, scatter, cli_train,
-                        configs.synthetic_quality().batch_size)
-    check(cli_res[0]["steady_window_rays_per_s"],
-          "CLI: no steady log window in the first call")
+    # The training CLI's experiment folder stays until the serving phase
+    # has run on its last checkpoint.
+    exp = tempfile.mkdtemp(prefix="ucnerf_cli_")
+    try:
+        cli_res = cli_phase(torch, gather, scatter, cli_train,
+                            configs.synthetic_quality().batch_size, exp)
+        check(cli_res[0]["steady_window_rays_per_s"],
+              "CLI: no steady log window in the first call")
+        torch.cuda.empty_cache()
+        serve_res, serve_paths = serving_phase(
+            torch, gather, scatter, hashgrid, configs, step, exp, k4)
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
 
     # Launches of each main path, counted from 0 just before it.
     paths = {"render": slice_res["launches"],
              "train_f32": train_res["launches"],
              "train_bf16": bf16_res["launches"],
              "cli_train": cli_res[0]["launches"],
-             "cli_resume": cli_res[1]["launches"]}
+             "cli_resume": cli_res[1]["launches"], **serve_paths}
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2"), (k3, "K3"),
                        (k5, "K5")):
         entry["launches_by_path"] = {p: n[key] for p, n in paths.items()
@@ -1817,7 +2098,8 @@ def main(argv=None):
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "render": slice_res, "train": train_res,
                        "train_bf16": bf16_res, "repeat": repeat_res,
-                       "cli": cli_res, "grad_check": grad_res}, f, indent=1)
+                       "cli": cli_res, "serve": serve_res,
+                       "grad_check": grad_res}, f, indent=1)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

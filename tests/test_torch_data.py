@@ -163,8 +163,11 @@ def test_image_metrics_match_jax_package(rng):
         jimage.MetricHarness()(img, ref, quantize=False)
     with pytest.raises(ValueError):
         timage.downsample(img, 5)
-    with pytest.raises(NotImplementedError):  # LPIPS is not ported
-        timage.MetricHarness(lpips_weights="vgg.npz")
+    # A missing LPIPS weights file: no LPIPS, as in the JAX package
+    # (tests/test_torch_lpips.py holds the metric itself).
+    missing = "no-such-dir/vgg.npz"
+    assert timage.MetricHarness(lpips_weights=missing)(img, ref) == \
+        jimage.MetricHarness(lpips_weights=missing)(img, ref) == got
 
 
 def test_eval_camidx_and_quaternion_match_jax_package(rng):

@@ -211,12 +211,16 @@ names = [m.name for m in pkgutil.walk_packages(ucnerf_tpu_torch.__path__,
                                                "ucnerf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 31, names
+assert len(names) >= 41, names
 assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
         "ucnerf_tpu_torch.train.state", "ucnerf_tpu_torch.train.checkpoints",
         "ucnerf_tpu_torch.data.datasets", "ucnerf_tpu_torch.data.warping",
-        "ucnerf_tpu_torch.utils.image", "ucnerf_tpu_torch.cli.common",
-        "ucnerf_tpu_torch.cli.eval",
+        "ucnerf_tpu_torch.data.paths", "ucnerf_tpu_torch.utils.image",
+        "ucnerf_tpu_torch.utils.vis", "ucnerf_tpu_torch.utils.lpips",
+        "ucnerf_tpu_torch.extraction", "ucnerf_tpu_torch.extraction.meshing",
+        "ucnerf_tpu_torch.extraction.tsdf", "ucnerf_tpu_torch.cli.common",
+        "ucnerf_tpu_torch.cli.eval", "ucnerf_tpu_torch.cli.render",
+        "ucnerf_tpu_torch.cli.extract", "ucnerf_tpu_torch.cli.tsdf",
         "ucnerf_tpu_torch.cli.train"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "ucnerf_tpu" or m.startswith("ucnerf_tpu.")]

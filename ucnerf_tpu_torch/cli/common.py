@@ -26,6 +26,26 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def add_device_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (cuda | cpu)")
+
+
+def resolve_device(name: str, logger):
+    """The torch device `name`; raises for cuda without a CUDA device (the
+    kernels have no quiet fallback: --device cpu runs their plain
+    versions)."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device (pass --device "
+                           f"cpu to run the plain versions of the kernels)")
+    logger.info("device: %s", torch.cuda.get_device_name(device)
+                if device.type == "cuda" else device)
+    return device
+
+
 def load_config_from_args(args) -> configs.Config:
     preset = "tiny" if getattr(args, "tiny", False) else args.preset
     return configs.load_config(preset, args.binding)

@@ -53,8 +53,7 @@ def main(argv=None):
     parser.add_argument("--multihost", action="store_true",
                         help="not ported: several processes need the "
                              "port of parallel/mesh.py")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to train on (cuda | cpu)")
+    common.add_device_arg(parser)
     args = parser.parse_args(argv)
     if args.multihost:
         raise NotImplementedError(
@@ -75,12 +74,7 @@ def main(argv=None):
     from ucnerf_tpu_torch.train import step as step_lib
     from ucnerf_tpu_torch.utils import image as image_lib
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (pass --device "
-                           "cpu to run the plain versions of the kernels)")
-    logger.info("device: %s", torch.cuda.get_device_name(device)
-                if device.type == "cuda" else device)
+    device = common.resolve_device(args.device, logger)
 
     dataset = datasets.load_dataset("train", config)
     test_dataset = datasets.load_dataset("test", config)

@@ -94,6 +94,46 @@ class ZipMLP(nn.Module):
                     width += inputs
             self.rgb_layer = DenseCM(width, cfg.num_rgb_channels, generator)
 
+    def encode_features(self, means, stds):
+        """Warp, hash-encode, erf-downweight and hex-average (channel-major).
+
+        Args:
+          means: [3, 6, R, S] multisample means (6 hex points).
+          stds: [6, R, S] multisample stds.
+
+        Returns:
+          features [F, M] (M = R*S) and the contracted means [3, R, S].
+        """
+        cfg = self.config
+        _, _, r, s = means.shape
+        m = r * s
+        if cfg.warp_fn is not None:
+            means, stds = coord.track_linearize_cm(
+                cfg.warp_fn, means, stds, stop_grads=not cfg.contract_grads)
+            bound = 2.0  # contract() maps into the radius-2 ball.
+            means = means / bound
+            stds = stds / bound
+        x01 = (means.reshape(3, 6, m) + 1.0) / 2.0
+        if cfg.hex_single_query:
+            x01 = x01.mean(dim=1, keepdim=True)  # [3, 1, M]
+        feats, _ = hashgrid.encode_hex_cm(
+            x01, stds.reshape(6, m), self.table, self.grid_spec,
+            gather_bf16=cfg.grid_bf16_gather,
+            bwd_dense_sample=cfg.grid_bwd_dense_sample,
+            bwd_value_dtype=cfg.grid_bwd_value_dtype)
+        return feats, means.mean(dim=1)
+
+    def predict_density(self, means, stds):
+        """Features -> raw density and bottleneck.
+
+        Returns raw_density [R, S] (before ``density_bias`` and the
+        softplus), the bottleneck x [W, M] and the contracted means
+        [3, R, S]."""
+        _, _, r, s = means.shape
+        feats, means_contract = self.encode_features(means, stds)
+        x = self.density_out(torch.relu(self.density_hidden(feats)))
+        return x[0].reshape(r, s), x, means_contract
+
     def forward(self, means, stds, viewdirs=None, train=False):
         """Evaluate the field.
 
@@ -115,23 +155,7 @@ class ZipMLP(nn.Module):
                                       "ported yet")
         _, _, r, s = means.shape
         m = r * s
-        if cfg.warp_fn is not None:
-            means, stds = coord.track_linearize_cm(
-                cfg.warp_fn, means, stds, stop_grads=not cfg.contract_grads)
-            bound = 2.0  # contract() maps into the radius-2 ball.
-            means = means / bound
-            stds = stds / bound
-        x01 = (means.reshape(3, 6, m) + 1.0) / 2.0
-        if cfg.hex_single_query:
-            x01 = x01.mean(dim=1, keepdim=True)  # [3, 1, M]
-        feats, _ = hashgrid.encode_hex_cm(
-            x01, stds.reshape(6, m), self.table, self.grid_spec,
-            gather_bf16=cfg.grid_bf16_gather,
-            bwd_dense_sample=cfg.grid_bwd_dense_sample,
-            bwd_value_dtype=cfg.grid_bwd_value_dtype)
-        del x01
-        x = self.density_out(torch.relu(self.density_hidden(feats)))
-        raw_density = x[0].reshape(r, s)
+        raw_density, x, means_contract = self.predict_density(means, stds)
         density = nn.functional.softplus(raw_density + cfg.density_bias)
 
         if cfg.disable_rgb:
@@ -153,5 +177,5 @@ class ZipMLP(nn.Module):
             rgb = rgb * (1 + 2 * cfg.rgb_padding) - cfg.rgb_padding
             rgb = rgb.reshape(3, r, s)
 
-        return dict(coord=means.mean(dim=1), density=density, rgb=rgb,
+        return dict(coord=means_contract, density=density, rgb=rgb,
                     normals=None, normals_pred=None)

@@ -1,7 +1,9 @@
 """Coordinate warps and encodings (port of ``ucnerf_tpu/ops/coord.py``).
 
 The render path's half: ray-distance warps, the channel-major Gaussian
-contraction, and the sinusoidal positional encoding.
+contraction, and the sinusoidal positional encoding; and the point
+contraction and its inverse (``contract``, ``inv_contract``), which mesh
+extraction uses on grid points and vertices.
 """
 
 from __future__ import annotations
@@ -12,6 +14,23 @@ import torch
 from ucnerf_tpu_torch.ops import mathx
 
 EPS = mathx.EPS
+
+
+def contract(x):
+    """Contract points [..., 3] towards the origin (Eq 10 of mip-NeRF 360):
+    identity inside the unit ball, (2 - 1/|x|) * x/|x| outside, so R^3
+    maps into the ball of radius 2."""
+    x_mag_sq = torch.clamp(torch.sum(x**2, dim=-1, keepdim=True), min=EPS)
+    return torch.where(x_mag_sq <= 1, x,
+                       ((2 * torch.sqrt(x_mag_sq) - 1) / x_mag_sq) * x)
+
+
+def inv_contract(z):
+    """The inverse of ``contract`` on points [..., 3]."""
+    z_mag_sq = torch.clamp(torch.sum(z**2, dim=-1, keepdim=True), min=EPS)
+    return torch.where(
+        z_mag_sq <= 1, z,
+        z / torch.clamp(2 * torch.sqrt(z_mag_sq) - z_mag_sq, min=EPS))
 
 
 def contract_mean_std_cm(x, std):

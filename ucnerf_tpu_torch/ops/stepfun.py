@@ -177,6 +177,19 @@ def weighted_percentile(t, w, ps):
     return mathx.sorted_interp(q, cw, t)
 
 
+def resample(t, tp, vp, use_avg=False):
+    """Resample a step function (tp, vp) onto new fenceposts t: the integral
+    of (tp, vp) over each new interval, or with use_avg its mean there."""
+    if use_avg:
+        wp = torch.diff(tp, dim=-1)
+        v_numer = resample(t, tp, vp * wp, use_avg=False)
+        v_denom = resample(t, tp, wp, use_avg=False)
+        return v_numer / torch.clamp(v_denom, min=EPS)
+    acc = torch.cumsum(vp, dim=-1)
+    acc0 = torch.cat([torch.zeros_like(acc[..., :1]), acc], dim=-1)
+    return torch.diff(mathx.sorted_interp(t, tp, acc0), dim=-1)
+
+
 def blur_stepfun(x, y, r):
     """Convolve a step function (x, y) with a box filter of radius r.
 

@@ -60,6 +60,25 @@ def latest_checkpoint_step(base_folder: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _load(base_folder: str, step: int, device):
+    # weights_only: the file holds tensors and plain numbers, nothing else.
+    return torch.load(os.path.join(_ckpt_dir(base_folder), str(step), _FILE),
+                      map_location=device, weights_only=True)
+
+
+def restore_model(base_folder: str, model: torch.nn.Module) -> int:
+    """Load the newest checkpoint's parameters into `model`, on the device
+    it is on, and leave its optimizer state on disk (the serving CLIs need
+    no Adam moments).  Returns the step; 0, with `model` untouched, when
+    none exists."""
+    step = latest_checkpoint_step(base_folder)
+    if step is None:
+        return 0
+    payload = _load(base_folder, step, next(model.parameters()).device)
+    model.load_state_dict(payload["model"])
+    return step
+
+
 def restore_checkpoint(base_folder: str,
                        state: TrainState) -> tuple[TrainState, int]:
     """Restore the newest checkpoint into `state`'s model and optimizer, on
@@ -69,11 +88,7 @@ def restore_checkpoint(base_folder: str,
     step = latest_checkpoint_step(base_folder)
     if step is None:
         return state, 0
-    device = next(state.model.parameters()).device
-    # weights_only: the file holds tensors and plain numbers, nothing else.
-    payload = torch.load(os.path.join(_ckpt_dir(base_folder), str(step),
-                                      _FILE),
-                         map_location=device, weights_only=True)
+    payload = _load(base_folder, step, next(state.model.parameters()).device)
     state.model.load_state_dict(payload["model"])
     state.optimizer.adam.load_state_dict(payload["adam"])
     state.optimizer.count = int(payload["count"])

@@ -8,9 +8,8 @@ affine color-correction used for "cc" eval metrics (image.py:71-111), and a
 ``MetricHarness`` (image.py:114-133).  The reference's skimage SSIM
 (grayscale, 7x7 uniform-or-gaussian window) is re-implemented here with the
 standard Wang et al. gaussian-window formulation.  LPIPS needs pretrained VGG
-weights, which the repository does not hold, and the port has no LPIPS
-network yet: the harness reports PSNR and SSIM, and raises when asked for
-LPIPS.
+weights, which the repository does not hold: given a weights file, the
+harness adds it (``utils/lpips.py``); without one it reports PSNR and SSIM.
 """
 
 from __future__ import annotations
@@ -142,12 +141,13 @@ def rgb_to_gray(rgb):
 
 
 class MetricHarness:
-    """PSNR + SSIM.  LPIPS (``lpips_weights``) is not ported."""
+    """PSNR + SSIM (+ LPIPS when a VGG weights file is available)."""
 
     def __init__(self, lpips_weights: Optional[str] = None):
+        self._lpips = None
         if lpips_weights is not None:
-            raise NotImplementedError(
-                "LPIPS is not ported: utils/lpips.py and its VGG weights")
+            from ucnerf_tpu_torch.utils import lpips as lpips_lib
+            self._lpips = lpips_lib.LPIPS.from_file(lpips_weights)
 
     def __call__(self, rgb_pred, rgb_gt, name_fn=lambda s: s,
                  quantize=True):
@@ -160,4 +160,7 @@ class MetricHarness:
         mse = float(np.mean((rgb_pred - rgb_gt) ** 2))
         psnr = float(mse_to_psnr(max(mse, 1e-12)))
         s = ssim(rgb_to_gray(rgb_pred), rgb_to_gray(rgb_gt))
-        return {name_fn("psnr"): psnr, name_fn("ssim"): s}
+        out = {name_fn("psnr"): psnr, name_fn("ssim"): s}
+        if self._lpips is not None:
+            out[name_fn("lpips")] = self._lpips(rgb_pred, rgb_gt)
+        return out
