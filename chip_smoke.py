@@ -67,7 +67,21 @@ Phases:
      with faces); an extract density chunk and the mesh's vertex colors on
      the card against a CPU copy of the model; K4's two entry points held
      and timed on the corner indices one extract chunk hands a NeRF level;
-  11. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+  11. MVS phase: the CER-MVS depth estimator's entry points in-process,
+     ``cli.mvs_train`` and ``cli.mvs_depth``, with the launches of each
+     counted from 0 (no hand-written kernel lies on either path): the tiny
+     cascade's quality recipe (600 steps at a 64x96 crop; the per-view median
+     abs-rel depth error of the trained cascade below the random init's); 20
+     full-width training steps; full-width depth of 3 reference views with 6
+     sources each on the synthetic scene at 1920x1280, rescales 0.5 and 1.0
+     and ``--fuse``, twice (every ``.npy`` bitwise equal); each pass's
+     forward split by CUDA events into encoders, correlation build, lookups
+     and update block, with its peak memory (the reference demo's rescale-2.0
+     pass at 10 sources too); the full-width cascade's first estimate, and
+     the tiny cascade's sequence loss and every gradient at its init, on the
+     card against the CPU; two runs of 2 full-width steps bitwise equal, and
+     the steps timed with cuDNN's deterministic algorithms and without;
+  12. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
      as the last line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -77,8 +91,10 @@ fails before printing any result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import re
@@ -1943,6 +1959,509 @@ def profile_chunk(torch, eval_step, view, cfg, path):
                    "interleave_kernel": ("interleave_kernel<",)})
 
 
+# The MVS phase.  The tiny cascade's quality recipe (QUALITY_r04.md:8-10,
+# `mvs_train --tiny --steps 600 --crop 64 96`, scored as tools/mvs_quality.py
+# scores it); full-width training steps at the CLI's default crop and
+# learning rate; the steps timed with cuDNN's deterministic algorithms and
+# without; the synthetic windows of the full-width depth: the Waymo sensor's
+# 1920x1280, on a 24-view ring ~14.4 deg apart (tests/test_mvs.py's dense
+# fixture: a 6-view ring barely overlaps), three reference views with 6 ring
+# neighbours each (as WaymoMVSWindows' 6 temporal sources), and the reference
+# demo's last pass (rescale 2.0 at 10 sources, demo_custom.py:33-44); the
+# card-vs-CPU window.
+MVS_TINY_STEPS = 600
+MVS_CROP = (64, 96)
+MVS_STEPS = 20
+MVS_LR = 2e-4
+MVS_TIMED_STEPS = 5
+MVS_SIZE = (1280, 1920)
+MVS_RING = 24
+MVS_REFS = (3, 4, 5)
+MVS_SOURCES = 6
+MVS_DEMO = (2.0, 10, 5)  # rescale, sources, reference view
+MVS_CHECK_SIZE = (128, 192)
+# Card against CPU (TF32 off).  The full-width cascade's first estimate
+# (encoders, the stage-0 volume, one lookup and one update) at rtol 1e-4 with
+# an atol of 1e-5 x max|disp|: convolutions summed in another order.  Its
+# later estimates are not held: an untrained cascade's recurrence amplifies
+# rounding about threefold an iteration (the lookup reads the volume at
+# (disp-origin)/incre, 1.3e5 hypotheses per unit of disparity in stage 1), so
+# no f32 run pins down a final disparity; the growth is recorded.  The tiny
+# cascade's sequence loss and gradients at its seed-0 init on the training
+# crop are held against a float64 run on the CPU, beside the CPU's own f32
+# run: the gradients of this loss are ill-conditioned in f32 (the depth
+# term's 1/disp, five instance norms' backward), and the CPU's f32 gradients
+# already miss the float64 ones by up to ~3e-3 relative L2 in a leaf.  The
+# card's loss at rtol 1e-5 of the float64 one; each gradient leaf at 1e-2
+# relative L2, but for the biases an instance norm follows, whose gradient is
+# 0 but for rounding: those at an atol of 1e-6 x the largest gradient of any
+# leaf.
+MVS_DISP_RTOL = 1e-4
+MVS_DISP_ATOL_FRAC = 1e-5
+MVS_LOSS_RTOL = 1e-5
+MVS_GRAD_REL_L2 = 1e-2
+MVS_GRAD_FLOOR_FRAC = 1e-6
+
+
+class RingWindows:
+    """cli.mvs_depth's windows over the synthetic ring: reference view
+    refs[index] first, then its `sources` nearest ring neighbours."""
+
+    def __init__(self, win, refs, sources):
+        self.win, self.refs, self.sources = win, tuple(refs), sources
+
+    def __len__(self):
+        return len(self.refs)
+
+    def __getitem__(self, index):
+        ref, half = self.refs[index], self.sources // 2
+        idxs = [ref] + [ref + o for o in range(-half, half + 1) if o != 0]
+        return (self.win.images[idxs], self.win.poses[idxs],
+                self.win.intrinsics[idxs], [f"view{i:02d}" for i in idxs],
+                self.win.scale)
+
+
+def mvs_cli(torch, fn, *args):
+    """An MVS entry point in-process, its standard output kept: returns
+    (result, seconds, log lines)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, buf.getvalue().splitlines()
+
+
+def mvs_log_rate(lines):
+    """Steps/s between the second and the last progress line of
+    cli.mvs_train ("step N: ... (T s)"), past the first step's set-up."""
+    pts = [(int(m.group(1)), float(m.group(2))) for m in
+           (re.match(r"step (\d+): .*\(([\d.]+)s\)$", s) for s in lines) if m]
+    (s0, t0), (s1, t1) = pts[1], pts[-1]
+    return (s1 - s0) / (t1 - t0) if t1 > t0 else float("nan")
+
+
+def mvs_abs_rel(torch, model, win, crop, device):
+    """tools/mvs_quality.py's per-view score of `model`: every window at
+    `crop`, rescale 1.0, post-processed and upsampled (nearest) to the crop,
+    against the analytic depth: (median, mean abs-rel, valid share)."""
+    from ucnerf_tpu_torch.cli import common
+    from ucnerf_tpu_torch.models.mvs import pipelines
+
+    ch, cw = crop
+    preds, gts = [], []
+    with torch.no_grad(), common.deterministic_cudnn():
+        for i in range(len(win)):
+            images, poses, intr, scale = win.window(i)
+            disp = model(*(torch.from_numpy(np.ascontiguousarray(a)).to(
+                device) for a in (images[:, :ch, :cw], poses, intr)),
+                scale=scale)
+            depth = pipelines.resize(pipelines.postprocess_disp(disp),
+                                     (ch, cw), "nearest")
+            preds.append(depth.cpu().numpy())
+            gts.append(win.depths[i][:ch, :cw])
+    pred, gt = np.stack(preds), np.stack(gts)
+    valid = (pred > 0) & (gt > 0)
+    r = np.abs(pred[valid] - gt[valid]) / gt[valid]
+    return (float(np.median(r)) if r.size else float("nan"),
+            float(r.mean()) if r.size else float("nan"), float(valid.mean()))
+
+
+def mvs_grads(torch, model, batch):
+    """(loss, {name: gradient}) of one sequence-loss step of `model`."""
+    from ucnerf_tpu_torch.models.mvs import pipelines
+
+    model.zero_grad(set_to_none=True)
+    _, preds = model(*batch[:3], return_predictions=True)
+    loss, _ = pipelines.sequence_loss(preds, batch[3], gradual_weight=0.5)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().cpu().numpy()
+                         for n, p in model.named_parameters()}
+
+
+def mvs_card_vs_cpu(torch, mvs_depth, mvs_train, mvs_data, configs,
+                    full_ckpt, device):
+    """The full-width weights on a 3-view window of MVS_CHECK_SIZE, and the
+    tiny cascade's sequence loss and gradients at its init on the training
+    crop, on the card and on the CPU."""
+    from ucnerf_tpu_torch.cli import common
+
+    h, w = MVS_CHECK_SIZE
+    win = mvs_data.SyntheticMVSWindows(
+        config=configs.tiny(training_views=MVS_RING, synthetic_height=h,
+                            synthetic_width=w), num_views=3)
+    images, poses, intr, scale = win.window(1)
+    preds = []
+    for dev in (device, torch.device("cpu")):
+        model = mvs_depth.load_model(full_ckpt, "HR", dev)
+        with torch.no_grad(), common.deterministic_cudnn():
+            _, out = model(*(torch.from_numpy(a).to(dev) for a in
+                             (images, poses, intr)), scale=scale,
+                           return_predictions=True)
+        preds.append([p.cpu().numpy() for p in out])
+    errs = [float(np.abs(g - c).max()) for g, c in zip(*preds)]
+    first_g, first_c = preds[0][0], preds[1][0]
+    top_disp = float(np.abs(first_c).max())
+    check(np.allclose(first_g, first_c, rtol=MVS_DISP_RTOL,
+                      atol=MVS_DISP_ATOL_FRAC * top_disp),
+          f"MVS: the full-width cascade's first estimate on the card vs the "
+          f"CPU: max abs err {errs[0]} (max |disp| {top_disp})")
+
+    train_win = mvs_data.SyntheticMVSWindows(num_views=5)
+    out = {}
+    for label, dev, dtype in (("card", device, torch.float32),
+                              ("cpu", torch.device("cpu"), torch.float32),
+                              ("f64", torch.device("cpu"), torch.float64)):
+        model = mvs_train.build_model(tiny=True).to(dev, dtype)
+        batch = [t.to(dtype) for t in mvs_train.crop_batch(
+            train_win, 0, MVS_CROP, dev)]
+        with common.deterministic_cudnn():
+            out[label] = mvs_grads(torch, model, batch)
+    loss_64, grads_64 = out["f64"]
+    loss_g = out["card"][0]
+    check(abs(loss_g - loss_64) <= MVS_LOSS_RTOL * abs(loss_64),
+          f"MVS: tiny sequence loss {loss_g} on the card, {loss_64} in "
+          f"float64")
+    top = max(float(np.abs(g).max()) for g in grads_64.values())
+    worst = {}
+    for label in ("card", "cpu"):
+        grads = out[label][1]
+        worst[label] = 0.0
+        for name, want in grads_64.items():
+            got = grads[name]
+            if np.abs(want).max() < MVS_GRAD_FLOOR_FRAC * top:
+                check(label == "cpu" or np.abs(got - want).max()
+                      <= MVS_GRAD_FLOOR_FRAC * top,
+                      f"MVS: tiny gradient {name} on the card: max abs err "
+                      f"{np.abs(got - want).max()} (a zero gradient)")
+                continue
+            rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            worst[label] = max(worst[label], rel)
+            check(label == "cpu" or rel <= MVS_GRAD_REL_L2,
+                  f"MVS: tiny gradient {name} on the card: {rel} relative "
+                  f"L2 from float64")
+    loss_c = out["cpu"][0]
+    res = {"window": [3, h, w], "first_disp_max_abs_err": errs[0],
+           "first_disp_max_abs": top_disp,
+           "disp_max_abs_err_by_iteration": errs,
+           "final_disp_max_abs": float(np.abs(preds[1][-1]).max()),
+           "tiny_loss_card_cpu_f64": [loss_g, loss_c, loss_64],
+           "tiny_grad_worst_rel_l2_from_f64": worst,
+           "tiny_grad_leaves": len(grads_64)}
+    print(f"[mvs] card vs CPU: full-width first estimate max abs err "
+          f"{errs[0]:.3g} of {top_disp:.3g} (iteration errors "
+          + " ".join(f"{e:.2g}" for e in errs)
+          + f"); tiny loss card {loss_g:.8g}, CPU {loss_c:.8g}, float64 "
+          f"{loss_64:.8g}; {len(grads_64)} gradients, worst relative L2 from "
+          f"float64 {worst['card']:.3g} on the card, {worst['cpu']:.3g} on "
+          f"the CPU", flush=True)
+    return res
+
+
+def mvs_train_state(torch, mvs_train, state, deterministic):
+    """A full-width model and its train step from `state` (a fresh Adam);
+    cuDNN's deterministic flag set as asked until the caller restores
+    it."""
+    model = mvs_train.build_model(tiny=False).cuda()
+    model.load_state_dict(state)
+    torch.backends.cudnn.deterministic = deterministic
+    return model, mvs_train.make_train_step(model, MVS_LR, 0.5)
+
+
+def mvs_repeat_and_cost(torch, mvs_train, state, batch):
+    """Two runs of 2 full-width steps from `state` on `batch` with the
+    deterministic algorithms: every parameter, Adam moment and loss bitwise
+    equal.  Then MVS_TIMED_STEPS steps timed with them and without, in the
+    order on, off, off, on: median ms a step of each."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.benchmark = False
+    try:
+        runs = []
+        for _ in range(2):
+            model, (step, adam) = mvs_train_state(torch, mvs_train, state,
+                                                  True)
+            losses = [float(step(*batch)[0]) for _ in range(2)]
+            tensors = {}
+            for name, p in model.named_parameters():
+                tensors[name] = p.detach().clone()
+                for key in ("exp_avg", "exp_avg_sq"):
+                    tensors[f"{name}.{key}"] = adam.state[p][key].clone()
+            runs.append((losses, tensors))
+        (la, ta), (lb, tb) = runs
+        diff = [n for n in ta if not torch.equal(ta[n], tb[n])]
+        check(la == lb and not diff,
+              f"MVS: two runs of 2 full-width steps differ: losses {la} / "
+              f"{lb}, tensors {diff[:5]}")
+        n_tensors = len(ta)
+        del runs, ta, tb
+        times = {True: [], False: []}
+        for det in (True, False, False, True):
+            _, (step, _) = mvs_train_state(torch, mvs_train, state, det)
+            step(*batch)  # warm-up
+            torch.cuda.synchronize()
+            for _ in range(MVS_TIMED_STEPS):
+                t0 = time.perf_counter()
+                step(*batch)
+                torch.cuda.synchronize()
+                times[det].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    res = {"repeat_tensors_bitwise": n_tensors, "repeat_losses": la,
+           "step_ms_deterministic": float(np.median(times[True])),
+           "step_ms_default": float(np.median(times[False])),
+           "step_ms_deterministic_all": times[True],
+           "step_ms_default_all": times[False]}
+    print(f"[mvs] repeatability: 2 full-width steps twice, {n_tensors} "
+          f"parameters and Adam moments and the losses bitwise equal; a "
+          f"step {res['step_ms_deterministic']:.1f} ms with cuDNN's "
+          f"deterministic algorithms, {res['step_ms_default']:.1f} ms "
+          f"without", flush=True)
+    return res
+
+
+class SectionTimer:
+    """CUDA-event spans by section name, summed after a synchronize."""
+
+    def __init__(self, torch):
+        self.torch, self.spans = torch, {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.spans.setdefault(name, []).append((start, end))
+            return out
+        return timed
+
+    def totals(self):
+        self.torch.cuda.synchronize()
+        return {name: sum(s.elapsed_time(e) for s, e in spans)
+                for name, spans in self.spans.items()}
+
+
+def mvs_breakdown(torch, mvs_depth, raft, model, win, passes):
+    """For each pass (label, rescale, sources, reference view): one
+    full-width forward after a warm-up, its device time split by CUDA
+    events into the encoders, the correlation build (volumes and pyramid),
+    the lookups and the update block (the GRU and its heads), and its peak
+    memory (weights and the pass's inputs included)."""
+    from ucnerf_tpu_torch.cli import common
+
+    out = {}
+    names = ("build_corr_volume", "corr_pyramid", "lookup")
+    originals = {n: getattr(raft, n) for n in names}
+    for label, rescale, sources, ref in passes:
+        images, poses, intr, _, scale = RingWindows(win, (ref,), sources)[0]
+        imgs, k = mvs_depth.rescaled(torch.from_numpy(images).cuda(), intr,
+                                     rescale)
+        args = (imgs, torch.from_numpy(poses).cuda(),
+                torch.from_numpy(k).cuda())
+        with torch.no_grad(), common.deterministic_cudnn():
+            model(*args, scale=scale)  # warm-up
+            timer = SectionTimer(torch)
+            try:
+                raft.build_corr_volume = timer.wrap(
+                    "corr_build", originals["build_corr_volume"])
+                raft.corr_pyramid = timer.wrap("corr_build",
+                                               originals["corr_pyramid"])
+                raft.lookup = timer.wrap("lookup", originals["lookup"])
+                for sub, name in ((model.fnet, "encoders"),
+                                  (model.cnet, "encoders"),
+                                  (model.update_block, "gru")):
+                    sub.forward = timer.wrap(name, type(sub).forward.__get__(
+                        sub))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                timer.wrap("total", model)(*args, scale=scale)
+                totals = timer.totals()
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                for n, fn in originals.items():
+                    setattr(raft, n, fn)
+                for sub in (model.fnet, model.cnet, model.update_block):
+                    sub.__dict__.pop("forward", None)
+        total = totals.pop("total")
+        rec = {"rescale": rescale, "sources": sources,
+               "input": list(imgs.shape), "total_ms": total,
+               "section_ms": totals,
+               "share": {k: v / total for k, v in totals.items()},
+               "other_share": 1 - sum(totals.values()) / total,
+               "peak_bytes": int(peak)}
+        out[label] = rec
+        print(f"[mvs] {label}: {list(imgs.shape)} x {sources} sources, "
+              f"forward {total:.1f} ms: " + ", ".join(
+                  f"{k} {v:.1f} ms ({v / total:.0%})"
+                  for k, v in totals.items())
+              + f"; peak {peak} B ({peak / 2**30:.2f} GiB)", flush=True)
+        del imgs, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def mvs_phase(torch, gather, scatter):
+    """The CER-MVS entry points on the card (see the module docstring):
+    returns the results and the launches of K1-K5 on each path."""
+    from ucnerf_tpu_torch import configs
+    from ucnerf_tpu_torch.cli import mvs_depth, mvs_train
+    from ucnerf_tpu_torch.models.mvs import datasets as mvs_data
+    from ucnerf_tpu_torch.models.mvs import raft
+
+    device = torch.device("cuda")
+    res, paths = {}, {}
+    tmp = tempfile.mkdtemp(prefix="ucnerf_mvs_")
+    try:
+        tiny_ckpt = os.path.join(tmp, "tiny.pt")
+        full_ckpt = os.path.join(tmp, "full.pt")
+        # 1. The tiny cascade's quality recipe, in-process.
+        reset_launches(gather, scatter)
+        losses, secs, lines = mvs_cli(
+            torch, mvs_train.main,
+            ["--tiny", "--steps", str(MVS_TINY_STEPS), "--crop",
+             *map(str, MVS_CROP), "--lr", str(MVS_LR), "--out", tiny_ckpt])
+        check(np.isfinite(losses).all() and min(losses[-3:]) < losses[0],
+              f"MVS: tiny training did not learn: {losses[:3]} ... "
+              f"{losses[-3:]}")
+        win = mvs_data.SyntheticMVSWindows(num_views=5)
+        state = torch.load(tiny_ckpt, map_location="cpu",
+                           weights_only=True)["state_dict"]
+        trained = mvs_train.build_model(tiny=True).to(device)
+        trained.load_state_dict(state)
+        initial = mvs_train.build_model(tiny=True).to(device)
+        score = {label: mvs_abs_rel(torch, m, win, MVS_CROP, device)
+                 for label, m in (("random_init", initial),
+                                  ("trained", trained))}
+        check(score["trained"][0] < score["random_init"][0],
+              f"MVS: the trained tiny cascade's median abs-rel "
+              f"{score['trained'][0]} is not below the random init's "
+              f"{score['random_init'][0]}")
+        res["tiny"] = {"steps": MVS_TINY_STEPS, "seconds": secs,
+                       "steps_per_s": MVS_TINY_STEPS / secs,
+                       "log_steps_per_s": mvs_log_rate(lines),
+                       "loss_first": losses[0], "loss_last": losses[-1],
+                       "abs_rel_median_mean_valid": score}
+        print(f"[mvs] tiny: {MVS_TINY_STEPS} steps in {secs:.1f} s "
+              f"({res['tiny']['log_steps_per_s']:.1f} steps/s logged), loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; per-view median abs-rel "
+              f"{score['trained'][0]:.4f} trained, "
+              f"{score['random_init'][0]:.4f} random init", flush=True)
+
+        # 2. Full-width training steps at the CLI's default crop.
+        losses, secs, lines = mvs_cli(
+            torch, mvs_train.main,
+            ["--steps", str(MVS_STEPS), "--lr", str(MVS_LR), "--out",
+             full_ckpt])
+        paths["mvs_train"] = read_launches(gather, scatter)
+        check(np.isfinite(losses).all(),
+              f"MVS: full-width training losses {losses}")
+        res["train"] = {"steps": MVS_STEPS, "crop": list(MVS_CROP),
+                        "seconds": secs, "steps_per_s": MVS_STEPS / secs,
+                        "log_steps_per_s": mvs_log_rate(lines),
+                        "losses": losses}
+        print(f"[mvs] full-width training: {MVS_STEPS} steps in {secs:.2f} s"
+              f" ({res['train']['log_steps_per_s']:.2f} steps/s logged), "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+
+        # 3. Full-width depth, twice, on the synthetic ring at sensor size.
+        t0 = time.perf_counter()
+        h, w = MVS_SIZE
+        ring = mvs_data.SyntheticMVSWindows(
+            config=configs.tiny(training_views=MVS_RING, synthetic_height=h,
+                                synthetic_width=w),
+            num_views=MVS_DEMO[2] + MVS_DEMO[1] // 2 + 1)
+        res["windows_build_s"] = time.perf_counter() - t0
+        windows = {MVS_SOURCES: RingWindows(ring, MVS_REFS, MVS_SOURCES)}
+        outs, runs = [], []
+        reset_launches(gather, scatter)
+        torch.cuda.reset_peak_memory_stats()
+        for call in range(2):
+            out = os.path.join(tmp, f"depth{call}")
+            args = mvs_depth.parse_args(
+                ["--data-dir", "synthetic", "--pose-json", "none",
+                 "--output", out, "--ckpt", full_ckpt, "--fuse"])
+            runs.append(mvs_cli(torch, mvs_depth.run, args, windows,
+                                device))
+            outs.append(out)
+        paths["mvs_depth"] = read_launches(gather, scatter)
+        peak = torch.cuda.max_memory_allocated()
+        names = [f"view{i:02d}" for i in MVS_REFS]
+        for name in names:
+            d = np.load(os.path.join(outs[0], f"{name}.npy"))
+            check(d.shape == MVS_SIZE and d.dtype == np.float32
+                  and np.isfinite(d).all() and (d >= 0).all(),
+                  f"MVS: {name}.npy {d.shape} {d.dtype}, finite "
+                  f"{np.isfinite(d).all()}, min {d.min()}")
+            check(os.path.exists(os.path.join(outs[0], "mask",
+                                              f"{name}.npy")),
+                  f"MVS: no mask for {name}")
+        files = sorted(os.path.relpath(os.path.join(r, f), outs[0])
+                       for r, _, fs in os.walk(outs[0]) for f in fs
+                       if f.endswith(".npy"))
+        check(len(files) == 2 * len(names), f"MVS: wrote {files}")
+        same = all(np.array_equal(np.load(os.path.join(outs[0], f)),
+                                  np.load(os.path.join(outs[1], f)))
+                   for f in files)
+        check(same, "MVS: two mvs_depth calls wrote different .npy files")
+        (view_secs, points), secs, lines = runs[0]
+        n_v, n_f, _ = ply_header(os.path.join(outs[0], "result.ply"))
+        check(n_v == points and n_f == 0,
+              f"MVS: result.ply holds {n_v} vertices, {n_f} faces; the CLI "
+              f"fused {points} points")
+        per_rescale = {}
+        for _, rescale, s in view_secs:
+            per_rescale.setdefault(str(rescale), []).append(s)
+        res["depth"] = {"size": list(MVS_SIZE), "refs": len(MVS_REFS),
+                        "sources": MVS_SOURCES, "call_seconds":
+                        [r[1] for r in runs], "per_view_seconds":
+                        per_rescale, "second_call_per_view_seconds":
+                        [s for _, _, s in runs[1][0][0]], "points": points,
+                        "peak_bytes": int(peak), "npy_bitwise": same,
+                        "fusion_log": [s for s in lines
+                                       if s.startswith("fusion iter")][-1:]}
+        print(f"[mvs] depth at {w}x{h}, {len(MVS_REFS)} views x rescales "
+              f"0.5 and 1.0 + fusion: per view " + ", ".join(
+                  f"{k}: {min(v):.3f}-{max(v):.3f} s"
+                  for k, v in per_rescale.items())
+              + f"; calls {runs[0][1]:.1f} / {runs[1][1]:.1f} s; {points} "
+              f"fused points; .npy bitwise across the two calls; peak "
+              f"{peak} B", flush=True)
+
+        # The time shares and peaks of each pass, the demo's last included.
+        model = mvs_depth.load_model(full_ckpt, "HR", device)
+        res["breakdown"] = mvs_breakdown(
+            torch, mvs_depth, raft, model, ring,
+            (("rescale_0.5", 0.5, MVS_SOURCES, MVS_REFS[0]),
+             ("rescale_1.0", 1.0, MVS_SOURCES, MVS_REFS[0]),
+             ("demo_rescale_2.0", MVS_DEMO[0], MVS_DEMO[1], MVS_DEMO[2])))
+        del model, ring, windows
+        torch.cuda.empty_cache()
+
+        # 4. Card against CPU.
+        res["card_vs_cpu"] = mvs_card_vs_cpu(
+            torch, mvs_depth, mvs_train, mvs_data, configs, full_ckpt,
+            device)
+
+        # 5. Repeatability, and the deterministic algorithms' cost.
+        state = torch.load(full_ckpt, map_location="cpu",
+                           weights_only=True)["state_dict"]
+        batch = mvs_train.crop_batch(win, 0, MVS_CROP, device)
+        res["repeat"] = mvs_repeat_and_cost(torch, mvs_train, state, batch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 6. No kernel of the NeRF paths runs on the MVS paths.
+    for label, launches in paths.items():
+        check(all(n == 0 for n in launches.values()),
+              f"{label}: launches {launches}; the MVS paths run no "
+              f"hand-written kernel")
+    res["launches"] = paths
+    return res, paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -2038,13 +2557,16 @@ def main(argv=None):
             torch, gather, scatter, hashgrid, configs, step, exp, k4)
     finally:
         shutil.rmtree(exp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    mvs_res, mvs_paths = mvs_phase(torch, gather, scatter)
 
     # Launches of each main path, counted from 0 just before it.
     paths = {"render": slice_res["launches"],
              "train_f32": train_res["launches"],
              "train_bf16": bf16_res["launches"],
              "cli_train": cli_res[0]["launches"],
-             "cli_resume": cli_res[1]["launches"], **serve_paths}
+             "cli_resume": cli_res[1]["launches"], **serve_paths,
+             **mvs_paths}
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2"), (k3, "K3"),
                        (k5, "K5")):
         entry["launches_by_path"] = {p: n[key] for p, n in paths.items()
@@ -2099,7 +2621,7 @@ def main(argv=None):
                        "render": slice_res, "train": train_res,
                        "train_bf16": bf16_res, "repeat": repeat_res,
                        "cli": cli_res, "serve": serve_res,
-                       "grad_check": grad_res}, f, indent=1)
+                       "grad_check": grad_res, "mvs": mvs_res}, f, indent=1)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

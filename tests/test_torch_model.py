@@ -211,7 +211,7 @@ names = [m.name for m in pkgutil.walk_packages(ucnerf_tpu_torch.__path__,
                                                "ucnerf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 41, names
+assert len(names) >= 50, names
 assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
         "ucnerf_tpu_torch.train.state", "ucnerf_tpu_torch.train.checkpoints",
         "ucnerf_tpu_torch.data.datasets", "ucnerf_tpu_torch.data.warping",
@@ -221,7 +221,14 @@ assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
         "ucnerf_tpu_torch.extraction.tsdf", "ucnerf_tpu_torch.cli.common",
         "ucnerf_tpu_torch.cli.eval", "ucnerf_tpu_torch.cli.render",
         "ucnerf_tpu_torch.cli.extract", "ucnerf_tpu_torch.cli.tsdf",
-        "ucnerf_tpu_torch.cli.train"} <= set(names), names
+        "ucnerf_tpu_torch.cli.train", "ucnerf_tpu_torch.cli.mvs_train",
+        "ucnerf_tpu_torch.cli.mvs_depth", "ucnerf_tpu_torch.models.mvs",
+        "ucnerf_tpu_torch.models.mvs.datasets",
+        "ucnerf_tpu_torch.models.mvs.extractor",
+        "ucnerf_tpu_torch.models.mvs.corr",
+        "ucnerf_tpu_torch.models.mvs.update",
+        "ucnerf_tpu_torch.models.mvs.raft",
+        "ucnerf_tpu_torch.models.mvs.pipelines"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "ucnerf_tpu" or m.startswith("ucnerf_tpu.")]
 assert not bad, bad

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -44,6 +45,22 @@ def resolve_device(name: str, logger):
     logger.info("device: %s", torch.cuda.get_device_name(device)
                 if device.type == "cuda" else device)
     return device
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block, and no autotuning
+    (a convolution's backward may otherwise pick an algorithm that adds in
+    a varying order); the previous settings come back after it."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
 
 
 def load_config_from_args(args) -> configs.Config:

@@ -5,9 +5,9 @@ of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) and returns the
 port's ``state_dict``; ``params_to_jax(state_dict)`` is its inverse (used to
 compare the port's gradients with a JAX gradient tree leaf by leaf).  The
 port's modules carry the JAX names, so the only changes are the dotted keys
-and the dense kernels: JAX stores them [in, out] as ``kernel``, torch as
-``weight`` [out, in].  Hash tables stay channel-major [C, rows] on both
-sides.
+and the kernels: JAX stores a dense kernel [in, out] and a conv kernel
+[kh, kw, in, out] as ``kernel``, torch as ``weight`` [out, in] and
+[out, in, kh, kw].  Hash tables stay channel-major [C, rows] on both sides.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def params_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
         arr = np.array(value, np.float32)
         if key == "kernel":
             name = f"{prefix}weight"
-            arr = arr.T
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
 
@@ -43,7 +43,7 @@ def params_to_jax(state_dict: Mapping) -> Dict:
         arr = np.array(value.detach().cpu().numpy(), np.float32)
         if key == "weight":
             key = "kernel"
-            arr = arr.T
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = tree
         for part in path:
             node = node.setdefault(part, {})

@@ -21,6 +21,16 @@ from ucnerf_tpu_torch.configs import Config
 from ucnerf_tpu_torch.ops import mathx
 
 
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax's ``clip_by_global_norm`` in place: keep the gradients if their
+    global norm is below `max_norm`, else scale them by max_norm / norm."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
 class Optimizer:
     """The optax chain of ``create_optimizer`` over a list of parameters.
 
@@ -51,10 +61,7 @@ class Optimizer:
             for g in grads:
                 g.clamp_(-cfg.grad_max_val, cfg.grad_max_val)
         if cfg.grad_max_norm > 0:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = norm < cfg.grad_max_norm
-            for g in grads:
-                g.copy_(torch.where(keep, g, g / norm * cfg.grad_max_norm))
+            clip_by_global_norm_(grads, cfg.grad_max_norm)
         lr = mathx.learning_rate_decay(self.count, cfg.lr_init, cfg.lr_final,
                                        cfg.max_steps, cfg.lr_delay_steps,
                                        cfg.lr_delay_mult)
