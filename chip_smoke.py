@@ -7,7 +7,8 @@ Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
 Phases:
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from ucnerf_tpu_torch/csrc/, all in parallel;
+  2. build every CUDA kernel from ucnerf_tpu_torch/csrc/, and the rig bundle
+     adjuster's host library (g++), all in parallel;
   3. kernel phase: hold each kernel against its plain PyTorch version at the
      shapes the main paths give it (K4's two entry points at a render
      chunk's proposal level: ``take_cm`` bitwise, and the fused
@@ -53,6 +54,17 @@ Phases:
      same initial parameters, a fresh Adam state, the same batch and one
      generator seed; every parameter, every Adam moment and the losses
      bitwise equal;
+  8b. camera-refinement phase: ``configs.waymo()`` with
+     ``optimize_cameras`` and ``contract_origin_grads`` from the same
+     initial weights and batch (each ray's view its physical camera), the
+     se(3) deltas at 0: one warm-up (the deltas' gradient finite and
+     nonzero in the rotation and the translation half) and 3 timed steps,
+     every K4 launch ``take_cm`` (160 a step; the sample positions need a
+     gradient, so the rows are kept), fused K1 20, K2 20, run starts 40;
+     ``take_cm`` held bitwise and timed at one microbatch's real indices
+     beside ``index_select``, and the weights' gradient einsum timed; a
+     64-ray microbatch's gradients, the deltas included, against the CPU;
+     two runs of 2 steps bitwise equal;
   9. CLI phase: ``ucnerf_tpu_torch.cli.train`` in-process on the synthetic
      scene (``--preset synthetic_quality`` with the bf16 backward): 30
      steps, a test render, checkpoints, then a second call that resumes at
@@ -81,7 +93,18 @@ Phases:
      the tiny cascade's sequence loss and every gradient at its init, on the
      card against the CPU; two runs of 2 full-width steps bitwise equal, and
      the steps timed with cuDNN's deterministic algorithms and without;
-  12. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+  12. pose phase: STPR pose refinement (``ucnerf_tpu_torch.pose``), no
+     hand-written kernel on its path: tests/test_full_chain.py's rig
+     (160x96, 8 frames x 3 cameras, cameras 2 and 3 yawed by 1.2 and -1.0
+     degrees) rendered in memory, on the card against the CPU (Harris
+     keypoints equal, match sets equal with the ratios near the threshold
+     counted, refined w2c within 1e-9, the rig error at least halved,
+     ``pose.json`` written and read back with json); the rig at the Waymo
+     front camera's 1920x1280 with 1024 keypoints and 10 frames (cut from
+     80): each stage's seconds, the counts, the rig error before and after;
+     SuperPoint with seeded random weights at 1920x1280 (forward time, peak
+     memory) and on a 320x240 crop against the CPU (NMS bitwise);
+  13. print the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
      as the last line.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -104,6 +127,7 @@ import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -148,6 +172,8 @@ K3_FUSED_SUMS = ("torch_sequence_ms", "formation_ms", "pack_ms", "planar_ms",
 # generator's seed.
 REPEAT_STEPS = 2
 REPEAT_SEED = 7
+# The camera-refinement phase: timed steps after its warm-up.
+CAM_STEPS = 3
 # K5 is held at the chunk counts the JAX package's record names: unchunked,
 # and its best configuration.
 K5_CHUNKS = (1, 24)
@@ -1081,18 +1107,21 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
     return res, eval_step, views, cfg, model
 
 
-def record_k4_calls(torch, gather, hashgrid, run):
-    """(table, idx, w) of every fused K4 call the encoder makes in run(),
-    each launched as usual."""
+def record_k4_calls(torch, gather, hashgrid, run, entry="take_wsum_cm"):
+    """The arguments of every call the encoder makes to K4's `entry` in
+    run(), each launched as usual: (table, idx, w) of the fused entry,
+    (table, idx) of take_cm."""
     recorded = []
+    launch = getattr(gather, entry)
 
-    def recorder(table, idx, w, bf16=False):
-        recorded.append((table.detach(), idx, w))
-        return gather.take_wsum_cm(table, idx, w, bf16=bf16)
+    def recorder(table, *args, bf16=False):
+        recorded.append((table.detach(),) + args)
+        return launch(table, *args, bf16=bf16)
 
     # The encoder reaches the kernels through its module's `gather` name.
-    hashgrid.gather = types.SimpleNamespace(take_cm=gather.take_cm,
-                                            take_wsum_cm=recorder)
+    hashgrid.gather = types.SimpleNamespace(
+        **{"take_cm": gather.take_cm, "take_wsum_cm": gather.take_wsum_cm,
+           entry: recorder})
     try:
         run()
     finally:
@@ -1244,10 +1273,14 @@ def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
 def train_batch(views, cfg, n, seed):
     """n rays drawn without replacement from the views, with targets made
     with numpy: a smooth colour of the view direction, sky where it points
-    up, lossmult 1 and random training-view ids."""
+    up, lossmult 1 and random training-view ids; each ray's view is its
+    physical camera (phys_cam_idx, read only with optimize_cameras)."""
     rng = np.random.default_rng(seed)
     flat = {k: np.concatenate([v[k].reshape((-1,) + v[k].shape[2:])
                                for v in views]) for k in views[0]}
+    flat["phys_cam_idx"] = np.concatenate([
+        np.full(v["origins"].shape[0] * v["origins"].shape[1], i, np.int32)
+        for i, v in enumerate(views)])
     pick = np.sort(rng.choice(flat["origins"].shape[0], n, replace=False))
     batch = {k: np.ascontiguousarray(v[pick]) for k, v in flat.items()}
     d = batch["viewdirs"]
@@ -1442,7 +1475,12 @@ def repeat_phase(torch, step, state_lib, cfgs, initial, batch):
                 losses.append(stats["loss"].detach().clone())
             tensors = {f"param {n}": p.detach().clone()
                        for n, p in model.named_parameters()}
-            names = dict(enumerate(n for n, _ in model.named_parameters()))
+            # Adam numbers the parameters group by group (the camera deltas
+            # make a second group).
+            by_id = {id(p): n for n, p in model.named_parameters()}
+            names = dict(enumerate(
+                by_id[id(p)] for g in state.optimizer.adam.param_groups
+                for p in g["params"]))
             for i, s in state.optimizer.adam.state_dict()["state"].items():
                 for k, v in s.items():
                     tensors[f"adam {names[i]} {k}"] = torch.as_tensor(
@@ -1474,6 +1512,172 @@ def repeat_phase(torch, step, state_lib, cfgs, initial, batch):
     differ = {label: r["differ"] for label, r in res.items() if r["differ"]}
     check(not differ, f"repeat: the two runs differ in {differ}")
     return res
+
+
+def cam_config(configs):
+    """configs.waymo() with in-graph camera refinement: the se(3) deltas of
+    its 3 physical cameras and, through contract_origin_grads, gradients to
+    the sample positions (the only path on which K4 launches take_cm)."""
+    return configs.waymo(lr_delay_steps=0, optimize_cameras=True,
+                         contract_origin_grads=True)
+
+
+def check_take_entry(gather, label):
+    """The camera-refinement path: the sample positions carry a gradient, so
+    every K4 launch is take_cm, whose gathered rows the corner weights'
+    gradient needs, and none is the fused entry.  Called right after the
+    path's launches are read."""
+    check(gather.take_cm.launches > 0 and gather.take_wsum_cm.launches == 0,
+          f"{label}: take_cm launched {gather.take_cm.launches} times and "
+          f"take_wsum_cm {gather.take_wsum_cm.launches}; expected every K4 "
+          f"launch to be take_cm")
+    K4_BY_ENTRY["take_cm"] += gather.take_cm.launches
+    K4_BY_ENTRY["take_wsum_cm"] += gather.take_wsum_cm.launches
+
+
+def take_real_step(torch, gather, hashgrid, losses_lib, model, cfg, batch):
+    """K4's take_cm on the corner indices one camera-refinement microbatch
+    hands a proposal level and a NeRF level (those touching the most rows):
+    bitwise its plain version, timed beside index_select; and the corner
+    weights' gradient, the einsum over the rows take_cm keeps, timed."""
+    n = cfg.batch_size // cfg.microbatches
+    part = {k: v[:n] for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def run():
+        renderings, history = model(part, 0.5, None, compute_extras=False,
+                                    train=True, generator=gen)
+        total, _, _ = losses_lib.compute_all_losses(part, renderings,
+                                                    history, cfg)
+        total.backward()
+
+    recorded = record_k4_calls(torch, gather, hashgrid, run, "take_cm")
+    model.zero_grad(set_to_none=True)
+    by_n = {}
+    for table, idx in recorded:
+        by_n.setdefault(idx.shape[1], []).append((table, idx))
+    check(len(by_n) == 2, f"a camera microbatch's take_cm calls have point "
+          f"counts {sorted(by_n)}; expected the proposal's and the NeRF "
+          f"field's")
+    del recorded
+    calls = []
+    for grid, npts in zip(("nerf", "proposal"), sorted(by_n)):
+        table, idx = most_rows(torch, by_n[npts])
+        c, flat = table.shape[0], idx.reshape(-1)
+        got = gather.take_cm(table, idx)
+        check(torch.equal(got, gather.take_cm_plain(table, idx)),
+              f"take_cm on the camera step's {grid} indices differs from "
+              f"its plain version")
+        touched = int(torch.unique(flat[(flat >= 0)
+                                        & (flat < table.shape[1])]).numel())
+        m = flat.numel()
+        g = torch.randn((c, npts), generator=gen, device="cuda")
+        rec = {"grid": grid, "M": m, "rows": table.shape[1],
+               "rows_touched": touched,
+               "ms": time_ms(lambda: gather.take_cm(table, idx), torch),
+               "plain_ms": time_ms(lambda: gather.take_cm_plain(table, idx),
+                                   torch),
+               "library_ms": time_ms(
+                   lambda: torch.index_select(table, 1, flat), torch),
+               "bound_ms": (4 * m + 4 * c * m + 4 * c * touched)
+               / HBM_BYTES_PER_S * 1e3,
+               "d_w_einsum_ms": time_ms(
+                   lambda: torch.einsum("chs,cs->hs", got, g), torch),
+               # rows and feature grads read once, the weights' grad
+               # written once.
+               "d_w_einsum_bound_ms": (4 * c * m + 4 * c * npts + 4 * m)
+               / HBM_BYTES_PER_S * 1e3,
+               "max_abs_err": 0.0}
+        print(f"[cam] take_cm at a camera step's {grid} level M={m} "
+              f"rows={rec['rows']} ({touched} touched): {rec['ms']:.4f} ms "
+              f"(plain {rec['plain_ms']:.4f}, index_select "
+              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}), "
+              f"bitwise its plain version; the weights' gradient einsum "
+              f"{rec['d_w_einsum_ms']:.4f} ms (bound "
+              f"{rec['d_w_einsum_bound_ms']:.4f})", flush=True)
+        calls.append(rec)
+        del got, g
+    torch.cuda.empty_cache()
+    return calls
+
+
+def cam_train_phase(torch, gather, scatter, hashgrid, step, state_lib,
+                    losses_lib, cfg, batch, initial, profile=None):
+    """Training with camera refinement at full width: the 64-ray gradient
+    check against the CPU on the f32 phase's initial weights with seeded
+    deltas of ~1e-3 (so3_exp's trig branch), the deltas included; then,
+    from those weights and the deltas at 0 on the f32 phase's batch, one
+    warm-up and CAM_STEPS timed steps.  Every K4 launch is take_cm (16 a
+    microbatch); fused K1 20, K2 20 and 40 run starts a step as in the f32
+    phase.  Then take_cm held and timed at one microbatch's real
+    indices, and with `profile` one step's kernel table written there."""
+    model = step.init_model(cfg, seed=0, device="cuda")
+    missing, unexpected = model.load_state_dict(initial, strict=False)
+    check(missing == ["cam_refine.se3_deltas"] and not unexpected,
+          f"camera model: missing {missing}, unexpected {unexpected}")
+    deltas = model.cam_refine.se3_deltas
+    with torch.no_grad():
+        deltas.normal_(0.0, 1e-3, generator=torch.Generator(
+            device="cuda").manual_seed(14))
+    grad = grad_check_phase(torch, losses_lib, model, cfg, batch)
+    check("cam_refine.se3_deltas" in grad["checked"],
+          "the gradient check did not hold the camera deltas")
+    with torch.no_grad():
+        deltas.zero_()
+    state = state_lib.create_train_state(cfg, model)
+    train_step = step.make_train_step(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state, _ = train_step(state, batch, 0.5, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    d = model.cam_refine.se3_deltas.grad.detach().cpu()
+    check(bool(torch.isfinite(d).all()) and bool(d[:, :3].abs().max() > 0)
+          and bool(d[:, 3:].abs().max() > 0),
+          f"camera deltas' first gradient {d.tolist()}: expected finite and "
+          f"nonzero in the rotation and the translation half")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(gather, scatter)
+    secs, totals = [], []
+    for _ in range(CAM_STEPS):
+        t0 = time.perf_counter()
+        state, stats = train_step(state, batch, 0.5, generator=gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        totals.append(float(stats["loss"]))
+    launches = read_launches(gather, scatter)
+    check_take_entry(gather, "train camera refinement")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(totals)), f"camera steps: losses {totals}")
+    deltas = model.cam_refine.se3_deltas.detach().cpu()
+    check(bool(deltas.abs().max() > 0), "camera deltas did not move")
+    hashed = 2 * cfg.microbatches
+    per_step = {"K1": hashed, "K1_fused": hashed, "K1_plain": 0,
+                "K2": 2 * cfg.microbatches, "K3": 0, "K3_fused": 0,
+                "K3_planar": 0, "K4": 16 * cfg.microbatches, "K5": 0,
+                "starts": hashed + 2 * cfg.microbatches}
+    for k, n in per_step.items():
+        check(launches[k] == n * CAM_STEPS,
+              f"camera steps: {k} launched {launches[k]} times in "
+              f"{CAM_STEPS} steps, expected {n} per step")
+    med = float(np.median(secs))
+    print(f"[cam] waymo + optimize_cameras + contract_origin_grads "
+          f"{TRAIN_RAYS} rays x {CAM_STEPS} steps ({cfg.microbatches} "
+          f"microbatches): step s {[round(x, 4) for x in secs]}, train "
+          f"rays/s {TRAIN_RAYS / med:.1f}, peak {peak} B "
+          f"({peak / 2**30:.2f} GiB), loss {[round(x, 5) for x in totals]}, "
+          f"launches {launches} (K4 all take_cm), deltas after "
+          f"{CAM_STEPS + 1} steps {deltas.tolist()}", flush=True)
+    real = take_real_step(torch, gather, hashgrid, losses_lib, model, cfg,
+                          batch)
+    if profile:
+        profile_train_step(torch, model, cfg, batch, step, state_lib, profile)
+    del state, train_step, model
+    torch.cuda.empty_cache()
+    return {"rays_per_s": TRAIN_RAYS / med, "step_seconds": secs,
+            "peak_bytes": peak, "totals": totals, "launches": launches,
+            "launches_per_step": per_step,
+            "first_delta_grad": d.tolist(), "deltas": deltas.tolist(),
+            "take_cm_real_step": real, "grad_check": grad}
 
 
 def steady_windows(logged, start, render_every):
@@ -1852,6 +2056,11 @@ def grad_check_phase(torch, losses_lib, model, cfg, batch):
         if leaf in ("table", "density_hidden.weight"):
             spec = modules[field].grid_spec
             frac = table_atol_frac(spec)
+        elif k == "cam_refine.se3_deltas":
+            # A sum of d loss / d position over the samples: each term is a
+            # table's difference across a cell of the finest grid, where a
+            # position moved by POS_ERR can fall into the next cell.
+            frac = table_atol_frac(modules["nerf_mlp"].grid_spec)
         if leaf == "table":
             by_level = [float(err[:, lo:hi].max()) / scale for lo, hi in
                         zip(spec.offsets[:-1], spec.offsets[1:])]
@@ -1873,7 +2082,8 @@ def grad_check_phase(torch, losses_lib, model, cfg, batch):
     check(not zero, f"zero gradients: {zero}")
     model.zero_grad(set_to_none=True)
     return {"losses_gpu": loss_g, "losses_cpu": loss_c,
-            "worst_grad_err_frac": worst[top], "worst_grad": top}
+            "worst_grad_err_frac": worst[top], "worst_grad": top,
+            "checked": sorted(grad_c)}
 
 
 def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
@@ -1891,7 +2101,8 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
         train_step(state, batch, 0.5, generator=gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    bf16 = cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
+    kind = ("bf16 backward" if cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
+            else "camera refinement" if cfg.optimize_cameras else None)
     # Kernels by the template argument or name that marks them: K1's fused
     # entry (its walks and the grads' interleave), K2 (walks and the two
     # record passes), K3 (the planar walk; the fused entry's walk and its
@@ -1899,7 +2110,7 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
     # starts), K4.
     write_profile(torch, prof, wall_us, path,
                   f"one training step of {batch['origins'].shape[0]} rays"
-                  + (" (bf16 backward)" if bf16 else ""),
+                  + (f" ({kind})" if kind else ""),
                   {"K1": ("WeightedRows", "interleave_grads_kernel"),
                    "K2": ("DenseWalk", "dense_pack_kernel",
                           "gather_records_kernel"),
@@ -2462,14 +2673,335 @@ def mvs_phase(torch, gather, scatter):
     return res, paths
 
 
+# The pose phase.  The rig of tests/test_full_chain.py: 3 cameras, the
+# second and third yawed by 5 and -5 degrees and offset by 0.3 m, on an
+# orbit of the synthetic scene, 0.08 rad a frame; the rig's miscalibration
+# yaws them by another 1.2 and -1.0 degrees.  POSE_SMALL is that test's
+# scene (width, height, focal, frames); POSE_FULL the Waymo front camera's
+# sensor and focal, 10 frames (cut from WaymoV2Dataset.NUM_FRAMES = 80).
+# The refinement's pixel thresholds are the test's at focal 130 and scale
+# with the focal, so that they hold the same angles.
+POSE_REL = ((0.0, 0.0), (5.0, 0.3), (-5.0, -0.3))
+POSE_PERT = (0.0, 1.2, -1.0)
+POSE_SMALL = (160, 96, 130.0, 8)
+POSE_FULL = (1920, 1280, 2055.0, 10)
+POSE_KEYPOINTS = {"small": 400, "full": 1024}
+POSE_PX = dict(epipolar_px=8.0, tri_max_error=25.0, huber_px=2.0)
+POSE_BA_ITERATIONS = 40
+# The card's refined w2c against the CPU run's (the same keypoints, matches
+# and tracks, so the same rig BA inputs).
+POSE_W2C_ATOL = 1e-9
+# A mutual match whose ratio lies within this of the threshold is reported.
+POSE_RATIO_MARGIN = 1e-4
+# SuperPoint: the full sensor for the forward's time and memory, a crop for
+# the card against the CPU (TF32 off: convolutions summed in other orders).
+SP_CROP = (240, 320)
+SP_RTOL, SP_ATOL = 1e-4, 1e-5
+
+
+def rot_y(deg):
+    r = np.radians(deg)
+    m = np.eye(4)
+    m[:3, :3] = [[np.cos(r), 0, np.sin(r)], [0, 1, 0],
+                 [-np.sin(r), 0, np.cos(r)]]
+    return m
+
+
+def pose_scene(cameras, datasets, warping, width, height, focal, frames):
+    """Grayscale images [N, H, W] of the rig over the synthetic scene
+    (rendered on the host, a thread each), the true and the perturbed
+    world-to-cam [N, 4, 4], the intrinsics and the true relative poses."""
+    k = np.array([[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]])
+    rel_true, rel_pert = [], []
+    for (yaw, tx), pert in zip(POSE_REL, POSE_PERT):
+        m = rot_y(yaw)
+        m[:3, 3] = [tx, 0.0, 0.0]
+        rel_true.append(m)
+        rel_pert.append(rot_y(pert) @ m)
+    w2c_true, w2c_pert = [], []
+    for s in range(frames):
+        ang = 0.08 * s
+        pos = np.array([2.5 * np.sin(ang), 0.4, 2.5 * np.cos(ang)])
+        c2w_gl = datasets._lookat_cam_to_world(pos, (0.0, 0.0, 0.0))
+        w2c_rig = np.linalg.inv(c2w_gl @ warping.GL_TO_CV)
+        for rt, rp in zip(rel_true, rel_pert):
+            w2c_true.append(rt @ w2c_rig)
+            w2c_pert.append(rp @ w2c_rig)
+    x, y = np.meshgrid(np.arange(width), np.arange(height))
+    pixtocam = np.linalg.inv(k)
+
+    def render(w2c):
+        c2w_gl = np.linalg.inv(w2c) @ warping.GL_TO_CV
+        origins, dirs, _, _, _ = cameras.pixels_to_rays(
+            x, y, pixtocam[None], c2w_gl[None, :3, :])
+        rgb, _, _ = datasets.synthetic_scene_color_and_depth(origins, dirs)
+        return (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
+                + 0.114 * rgb[..., 2])
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        gray = np.stack(list(pool.map(render, w2c_true)))
+    return (gray, np.stack(w2c_true), np.stack(w2c_pert),
+            np.stack([k] * len(gray)), rel_true)
+
+
+def rel_rot_err_deg(w2c, cam, rel_true):
+    """Mean angle of camera `cam`'s rig-relative rotation from the truth."""
+    cams = len(rel_true)
+    errs = []
+    for s in range(len(w2c) // cams):
+        rel = w2c[s * cams + cam] @ np.linalg.inv(w2c[s * cams])
+        dr = rel[:3, :3] @ rel_true[cam][:3, :3].T
+        errs.append(np.degrees(np.arccos(np.clip((np.trace(dr) - 1) / 2,
+                                                 -1, 1))))
+    return float(np.mean(errs))
+
+
+def ratio_margins(torch, descs, ratio):
+    """The distance from `ratio` of every mutual nearest neighbour's worse
+    ratio, over all image pairs, in float64 on the CPU."""
+    margins = []
+    for i in range(len(descs)):
+        for j in range(i + 1, len(descs)):
+            sim = (torch.from_numpy(descs[i]).double()
+                   @ torch.from_numpy(descs[j]).double().T)
+            top12, nn12 = sim.topk(2, dim=1)
+            top21, nn21 = sim.T.topk(2, dim=1)
+            r12 = (torch.sqrt(torch.clamp(2 - 2 * top12, min=0.0))
+                   .unbind(1))
+            r21 = (torch.sqrt(torch.clamp(2 - 2 * top21, min=0.0))
+                   .unbind(1))
+            ratio12 = r12[0] / (r12[1] + 1e-8)
+            ratio21 = r21[0] / (r21[1] + 1e-8)
+            ids = torch.arange(sim.shape[0])
+            mutual = nn21[nn12[:, 0], 0] == ids
+            worse = torch.maximum(ratio12, ratio21[nn12[:, 0]])[mutual]
+            margins.append((worse - ratio).abs())
+    return torch.cat(margins)
+
+
+def rounded(errs):
+    """{camera: (before, after)} rounded to 4 decimals, for printing."""
+    return {c: (round(b, 4), round(a, 4)) for c, (b, a) in errs.items()}
+
+
+def pose_json_check(pipeline, paths, w2c, frames, cams):
+    """Write pose.json, read it back with json, and hold its quaternions
+    and positions against w2c.  Returns the largest rotation error."""
+    with tempfile.TemporaryDirectory(prefix="ucnerf_pose_") as tmp:
+        path = os.path.join(tmp, "sparse", "0", "pose.json")
+        written = pipeline.write_pose_json(path, w2c, frames, cams)
+        with open(path) as f:
+            back = json.load(f)
+    check(back == written and len(back) == frames * cams,
+          f"pose.json read back differs from what was written "
+          f"({len(back)} entries)")
+    worst = 0.0
+    for s in range(frames):
+        for c in range(cams):
+            a = back[f"cam_{c + 1}/{s:08d}"]
+            m = w2c[s * cams + c]
+            check([a["p_x"], a["p_y"], a["p_z"]] == m[:3, 3].tolist(),
+                  f"pose.json cam_{c + 1}/{s:08d}: position differs")
+            r = paths._quat_to_rotmat(np.array([a["q_x"], a["q_y"],
+                                                a["q_z"], a["q_w"]]))
+            worst = max(worst, float(np.abs(r - m[:3, :3]).max()))
+    check(worst <= POSE_W2C_ATOL, f"pose.json rotations differ from w2c by "
+          f"{worst}")
+    return worst
+
+
+def pose_small(torch, cameras, datasets, warping, paths, features, matching,
+               pipeline):
+    """The small rig on the card against the CPU: Harris keypoints equal,
+    match sets equal, refined w2c within POSE_W2C_ATOL, the rig error at
+    least halved, pose.json round trip."""
+    width, height, focal, frames = POSE_SMALL
+    gray, _, w2c_pert, intr, rel_true = pose_scene(
+        cameras, datasets, warping, width, height, focal, frames)
+    cams = len(POSE_REL)
+    kp = POSE_KEYPOINTS["small"]
+    resp_equal = sum(torch.equal(
+        features.harris_response(g, device="cuda").cpu(),
+        features.harris_response(g, device="cpu")) for g in gray)
+    feats = {}
+    for dev in ("cpu", "cuda"):
+        feats[dev] = [features.detect_and_describe(g, kp, device=dev)
+                      for g in gray]
+    kp_equal = sum(np.array_equal(a[0], b[0])
+                   for a, b in zip(feats["cpu"], feats["cuda"]))
+    check(kp_equal == len(gray), f"Harris keypoints: {kp_equal} of "
+          f"{len(gray)} images equal on the card and the CPU")
+    desc_err = max(float(np.abs(a[1] - b[1]).max())
+                   for a, b in zip(feats["cpu"], feats["cuda"]))
+    descs = [d for _, d in feats["cpu"]]
+    m_cpu = matching.exhaustive_match(descs, device="cpu")
+    m_gpu = matching.exhaustive_match(descs, device="cuda")
+    margins = ratio_margins(torch, descs, 0.8)
+    near = int((margins < POSE_RATIO_MARGIN).sum())
+    differ = [p for p in set(m_cpu) | set(m_gpu)
+              if p not in m_cpu or p not in m_gpu
+              or not np.array_equal(m_cpu[p], m_gpu[p])]
+    print(f"[pose] small rig {width}x{height}, {frames} frames x {cams} "
+          f"cameras: Harris response bitwise on {resp_equal} of {len(gray)} "
+          f"images, keypoints equal on all; descriptors max abs diff "
+          f"{desc_err:.3g}; matches of {len(m_cpu)} pairs, "
+          f"{len(differ)} pairs differ; {near} mutual matches within "
+          f"{POSE_RATIO_MARGIN} of the ratio 0.8 (closest "
+          f"{float(margins.min()):.3g})", flush=True)
+    check(not differ, f"match sets differ between the card and the CPU in "
+          f"pairs {sorted(differ)[:10]}")
+    kw = dict(max_keypoints=kp, ba_iterations=POSE_BA_ITERATIONS, **POSE_PX)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        out[dev] = pipeline.refine_poses(gray, w2c_pert.copy(), intr, frames,
+                                         cams, device=dev, **kw)
+        out[dev]["wall_s"] = time.perf_counter() - t0
+    w2c = out["cuda"]["w2c"]
+    w2c_err = float(np.abs(w2c - out["cpu"]["w2c"]).max())
+    check(w2c_err <= POSE_W2C_ATOL, f"refined w2c on the card differs from "
+          f"the CPU run's by {w2c_err} (limit {POSE_W2C_ATOL})")
+    errs = {}
+    for cam in range(1, cams):
+        before = rel_rot_err_deg(w2c_pert, cam, rel_true)
+        after = rel_rot_err_deg(w2c, cam, rel_true)
+        errs[cam] = (before, after)
+        check(after < 0.5 * before, f"small rig camera {cam}: relative "
+              f"rotation error {before:.4f} -> {after:.4f} deg, not halved")
+    json_err = pose_json_check(pipeline, paths, w2c, frames, cams)
+    print(f"[pose] small rig refined on the card in "
+          f"{out['cuda']['wall_s']:.2f} s (CPU {out['cpu']['wall_s']:.2f} s), "
+          f"{out['cuda']['num_points']} points; w2c within {w2c_err:.3g} of "
+          f"the CPU run's; relative rotation error (deg) before -> after "
+          f"{rounded(errs)}; pose.json read back, rotations within "
+          f"{json_err:.3g}",
+          flush=True)
+    return {"size": [width, height], "frames": frames,
+            "harris_response_bitwise": resp_equal,
+            "keypoints_equal": kp_equal, "descriptor_max_abs_diff": desc_err,
+            "matched_pairs": len(m_cpu), "near_threshold": near,
+            "closest_ratio_margin": float(margins.min()),
+            "w2c_max_abs_diff": w2c_err, "rel_rot_err_deg": errs,
+            "seconds": {d: out[d]["wall_s"] for d in out},
+            "stats": out["cuda"]["stats"], "pose_json_rot_err": json_err}
+
+
+def pose_full(torch, cameras, datasets, warping, pipeline):
+    """The rig at the Waymo front camera's size: stage seconds, counts, the
+    rig error before and after (after below before).  Also returns the
+    first image, for SuperPoint."""
+    width, height, focal, frames = POSE_FULL
+    t0 = time.perf_counter()
+    gray, _, w2c_pert, intr, rel_true = pose_scene(
+        cameras, datasets, warping, width, height, focal, frames)
+    render_s = time.perf_counter() - t0
+    cams = len(POSE_REL)
+    px = {k: v * focal / POSE_SMALL[2] for k, v in POSE_PX.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = pipeline.refine_poses(gray, w2c_pert.copy(), intr, frames, cams,
+                                max_keypoints=POSE_KEYPOINTS["full"],
+                                ba_iterations=POSE_BA_ITERATIONS,
+                                device="cuda", **px)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stats = out["stats"]
+    check(out["num_points"] > 0, f"full-width rig: no point triangulated "
+          f"({stats})")
+    errs = {}
+    for cam in range(1, cams):
+        before = rel_rot_err_deg(w2c_pert, cam, rel_true)
+        after = rel_rot_err_deg(out["w2c"], cam, rel_true)
+        errs[cam] = (before, after)
+        check(after < before, f"full-width rig camera {cam}: relative "
+              f"rotation error {before:.4f} -> {after:.4f} deg, not reduced")
+    secs = {k: round(v, 4) for k, v in stats["seconds"].items()}
+    print(f"[pose] full-width rig {width}x{height}, {frames} frames (cut "
+          f"from 80) x {cams} cameras, {POSE_KEYPOINTS['full']} keypoints, "
+          f"thresholds {px}: images rendered on the host in {render_s:.1f} "
+          f"s; refine_poses {wall:.2f} s, stages {secs}; keypoints "
+          f"{stats['keypoints']}, pairs matched {stats['matched_pairs']} / "
+          f"verified {stats['verified_pairs']}, matches {stats['matches']}, "
+          f"tracks {stats['tracks']}, observations {stats['observations']}, "
+          f"points {out['num_points']}; peak {peak} B "
+          f"({peak / 2**30:.2f} GiB); relative rotation error (deg) before "
+          f"-> after {rounded(errs)}", flush=True)
+    return {"size": [width, height], "frames": frames,
+            "cut_from_frames": 80, "thresholds_px": px,
+            "render_seconds": render_s, "seconds": wall, "stats": stats,
+            "points": out["num_points"], "peak_bytes": peak,
+            "rel_rot_err_deg": errs}, gray[0]
+
+
+def superpoint_check(torch, features, gray):
+    """SuperPoint with seeded random weights: forward time and peak memory
+    at the full sensor size; a crop on the card against the CPU (semi and
+    desc within SP_RTOL / SP_ATOL, the NMS bitwise on the same scores)."""
+    net = features.SuperPointNet(seed=0).cuda().eval()
+    x = torch.from_numpy(np.ascontiguousarray(gray[None, :, :, None])).cuda()
+    with torch.no_grad():
+        net(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: net(x), torch, warmup=1, reps=5)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        kps, _ = features.superpoint_detect_and_describe(net, gray)
+        detect_s = time.perf_counter() - t0
+        h, w = SP_CROP
+        crop = x[:, :h, :w].contiguous()
+        cpu = copy.deepcopy(net).cpu()
+        semi_g, desc_g = (t.cpu() for t in net(crop))
+        semi_c, desc_c = cpu(crop.cpu())
+        scores = features.superpoint_scores(semi_c)
+        nms_c = features.simple_nms(scores)
+        nms_g = features.simple_nms(scores.cuda()).cpu()
+    errs = {k: float((a - b).abs().max()) for k, a, b in
+            (("semi", semi_g, semi_c), ("desc", desc_g, desc_c))}
+    check(torch.allclose(semi_g, semi_c, rtol=SP_RTOL, atol=SP_ATOL)
+          and torch.allclose(desc_g, desc_c, rtol=SP_RTOL, atol=SP_ATOL),
+          f"SuperPoint on the card vs the CPU: max abs err {errs} (rtol "
+          f"{SP_RTOL}, atol {SP_ATOL})")
+    check(torch.equal(nms_g, nms_c), "simple_nms on the card differs from "
+          "the CPU's on the same scores")
+    print(f"[pose] SuperPoint (seeded random weights) at "
+          f"{gray.shape[1]}x{gray.shape[0]}: forward {ms:.2f} ms, peak "
+          f"{peak} B ({peak / 2**30:.2f} GiB), detect-and-describe "
+          f"{detect_s:.3f} s ({len(kps)} keypoints); {w}x{h} crop card vs "
+          f"CPU max abs err {errs}, NMS bitwise", flush=True)
+    return {"forward_ms": ms, "peak_bytes": peak, "detect_seconds": detect_s,
+            "keypoints": len(kps), "crop_max_abs_err": errs}
+
+
+def pose_phase(torch, gather, scatter):
+    """STPR pose refinement (``ucnerf_tpu_torch.pose``), its launches
+    counted from 0 (no hand-written kernel lies on the path): the small rig
+    on the card against the CPU, the full-width rig, SuperPoint."""
+    from ucnerf_tpu_torch.data import cameras, datasets, paths, warping
+    from ucnerf_tpu_torch.pose import features, matching, pipeline
+
+    reset_launches(gather, scatter)
+    small = pose_small(torch, cameras, datasets, warping, paths, features,
+                       matching, pipeline)
+    full, gray = pose_full(torch, cameras, datasets, warping, pipeline)
+    launches = read_launches(gather, scatter)
+    check(not any(launches.values()), f"pose: kernel launches {launches}; "
+          f"expected none")
+    sp = superpoint_check(torch, features, gray)
+    return {"small": small, "full": full, "superpoint": sp}, {
+        "pose": launches}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
     parser.add_argument("--profile", help="also profile one render chunk "
                         "and write its kernel table here")
     parser.add_argument("--profile-train", help="also profile one training "
-                        "step with each backward and write the kernel tables "
-                        "here (f32) and beside it with '.bf16' before the "
+                        "step with each backward and one with camera "
+                        "refinement, and write the kernel tables here (f32) "
+                        "and beside it with '.bf16' and '.cam' before the "
                         "extension")
     args = parser.parse_args(argv)
 
@@ -2491,9 +3023,10 @@ def main(argv=None):
     print(f"[versions] python {sys.version.split()[0]} torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    secs = build.build(verbose=True)
-    print(f"[build] kernels {list(build.SOURCES)} built in {secs:.1f} s",
-          flush=True)
+    libs = build.SOURCES + build.HOST_SOURCES
+    secs = build.build(libs, verbose=True)
+    print(f"[build] kernels {list(build.SOURCES)} and the host library "
+          f"{list(build.HOST_SOURCES)} built in {secs:.1f} s", flush=True)
 
     k4 = kernel_phase(torch, gather)
     k1, k2, k3, k5 = scatter_phase(torch, scatter, hashgrid, configs)
@@ -2541,6 +3074,19 @@ def main(argv=None):
     repeat_res = repeat_phase(torch, step, state_lib,
                               (("f32", train_cfg), ("bf16", bf16_cfg)),
                               initial, batch)
+    torch.cuda.empty_cache()
+
+    # Camera refinement from the same initial weights and batch, the deltas
+    # at 0: the path on which K4 launches take_cm.
+    cam_cfg = cam_config(configs)
+    cam_res = cam_train_phase(
+        torch, gather, scatter, hashgrid, step, state_lib, losses_lib,
+        cam_cfg, batch, initial,
+        profile="{0}.cam{1}".format(*os.path.splitext(args.profile_train))
+        if args.profile_train else None)
+    initial["cam_refine.se3_deltas"] = torch.zeros(cam_cfg.num_phys_cams, 6)
+    repeat_res.update(repeat_phase(torch, step, state_lib,
+                                   (("camera", cam_cfg),), initial, batch))
     del initial, batch
     torch.cuda.empty_cache()
 
@@ -2559,14 +3105,17 @@ def main(argv=None):
         shutil.rmtree(exp, ignore_errors=True)
     torch.cuda.empty_cache()
     mvs_res, mvs_paths = mvs_phase(torch, gather, scatter)
+    torch.cuda.empty_cache()
+    pose_res, pose_paths = pose_phase(torch, gather, scatter)
 
     # Launches of each main path, counted from 0 just before it.
     paths = {"render": slice_res["launches"],
              "train_f32": train_res["launches"],
              "train_bf16": bf16_res["launches"],
+             "train_cam": cam_res["launches"],
              "cli_train": cli_res[0]["launches"],
              "cli_resume": cli_res[1]["launches"], **serve_paths,
-             **mvs_paths}
+             **mvs_paths, **pose_paths}
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2"), (k3, "K3"),
                        (k5, "K5")):
         entry["launches_by_path"] = {p: n[key] for p, n in paths.items()
@@ -2577,17 +3126,24 @@ def main(argv=None):
         check((entry["launches"] > 0) == (key != "K5"),
               f"{key} was launched {entry['launches']} times on the main "
               f"paths: {entry['launches_by_path']}")
-    # check_fused_entry held on every path that each K4 launch was the fused
-    # entry; take_cm is launched where sample positions need a gradient, and
-    # here by the kernel and real-index phases.
+    # check_fused_entry held on every path but the camera-refinement one
+    # that each K4 launch was the fused entry, and check_take_entry on that
+    # path that each was take_cm: take_cm is launched where the sample
+    # positions need a gradient (and by the kernel and real-index phases,
+    # which are not paths).
     check(sum(K4_BY_ENTRY.values()) == k4["launches"],
           f"K4's launches by entry {K4_BY_ENTRY} do not add up to "
           f"{k4['launches']}")
+    check(K4_BY_ENTRY["take_cm"] == paths["train_cam"]["K4"] > 0,
+          f"take_cm launched {K4_BY_ENTRY['take_cm']} times on the paths, "
+          f"the camera-refinement path's K4 launches "
+          f"{paths['train_cam']['K4']}")
     k4["launches_by_entry"] = dict(K4_BY_ENTRY)
     k4["take_wsum_cm"].update(
         name="take_wsum_cm (K4's fused entry: gather + 8-corner weighted "
              "sum)", route=k4["route"], source=k4["source"],
-        replaces=k4["replaces"], launches=k4["launches"])
+        replaces=k4["replaces"], launches=K4_BY_ENTRY["take_wsum_cm"])
+    k4["take_cm_real_step"] = cam_res["take_cm_real_step"]
     # K1 launches on the paths only through its fused entry: no path builds
     # the [C, 8 N L] values.  Every sort of K1, K2 and K3 ends with the run
     # starts pass, held against searchsorted in the kernel phase.
@@ -2612,6 +3168,7 @@ def main(argv=None):
     k4["launches_per_chunk"] = slice_res["launches_per_chunk"]
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2")):
         entry["launches_per_step"] = train_res["launches_per_step"][key]
+        entry["launches_per_camera_step"] = cam_res["launches_per_step"][key]
     k3["launches_per_step"] = bf16_res["launches_per_step"]["K3"]
 
     kernels = {"kernels": [k4, k1, k2, k3, k5]}
@@ -2619,9 +3176,10 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "render": slice_res, "train": train_res,
-                       "train_bf16": bf16_res, "repeat": repeat_res,
-                       "cli": cli_res, "serve": serve_res,
-                       "grad_check": grad_res, "mvs": mvs_res}, f, indent=1)
+                       "train_bf16": bf16_res, "train_cam": cam_res,
+                       "repeat": repeat_res, "cli": cli_res,
+                       "serve": serve_res, "grad_check": grad_res,
+                       "mvs": mvs_res, "pose": pose_res}, f, indent=1)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

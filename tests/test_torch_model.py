@@ -197,9 +197,23 @@ def test_dummy_batch_matches_jax():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
 
 
-def test_camera_refinement_is_refused():
-    with pytest.raises(NotImplementedError):
-        tstep.init_model(tconfigs.tiny(optimize_cameras=True), device="cpu")
+def test_camera_refinement_is_refused(tmp_path):
+    """Camera refinement is ported: the model holds zero deltas, a row for
+    each physical camera.  What stays refused is a dataset with more
+    physical cameras than Config.num_phys_cams, whose rays would index past
+    the deltas: cli.train raises before it builds the model."""
+    from ucnerf_tpu_torch.cli import train as cli_train
+
+    model = tstep.init_model(tconfigs.tiny(optimize_cameras=True),
+                             device="cpu")
+    deltas = model.cam_refine.se3_deltas
+    assert deltas.shape == (3, 6) and not deltas.any()
+    with pytest.raises(ValueError, match="num_phys_cams"):
+        cli_train.main([
+            "--tiny", "--device", "cpu", "--max-steps", "1",
+            "-b", f"Config.exp_name = {str(tmp_path / 'exp')!r}",
+            "-b", "Config.optimize_cameras = True",
+            "-b", "Config.num_phys_cams = 0"])
 
 
 def test_port_imports_no_jax():
@@ -228,7 +242,11 @@ assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
         "ucnerf_tpu_torch.models.mvs.corr",
         "ucnerf_tpu_torch.models.mvs.update",
         "ucnerf_tpu_torch.models.mvs.raft",
-        "ucnerf_tpu_torch.models.mvs.pipelines"} <= set(names), names
+        "ucnerf_tpu_torch.models.mvs.pipelines",
+        "ucnerf_tpu_torch.models.cam_refine", "ucnerf_tpu_torch.pose",
+        "ucnerf_tpu_torch.pose.colmap_io", "ucnerf_tpu_torch.pose.features",
+        "ucnerf_tpu_torch.pose.matching", "ucnerf_tpu_torch.pose.pipeline",
+        "ucnerf_tpu_torch.pose.rigba"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "ucnerf_tpu" or m.startswith("ucnerf_tpu.")]
 assert not bad, bad

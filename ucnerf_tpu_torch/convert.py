@@ -49,3 +49,15 @@ def params_to_jax(state_dict: Mapping) -> Dict:
             node = node.setdefault(part, {})
         node[key] = np.ascontiguousarray(arr)
     return tree
+
+
+def superpoint_params_from_npz(path) -> Dict[str, torch.Tensor]:
+    """The npz of tools/convert_superpoint_weights.py (flat ``layer/kernel``
+    HWIO and ``layer/bias`` keys, the JAX package's ``SuperPointNet`` tree)
+    -> the state_dict of the port's ``pose.features.SuperPointNet``."""
+    tree: Dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            layer, kind = key.split("/")
+            tree.setdefault(layer, {})[kind] = data[key]
+    return params_from_jax(tree)

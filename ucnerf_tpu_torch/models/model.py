@@ -5,14 +5,17 @@ The forward is deterministic (the JAX ``__call__`` with ``key=None``) unless
 a ``torch.Generator`` is given, from which it draws what the JAX keyed
 forward draws: the per-level sampling jitter and the hex pattern's flip,
 rotation and basis vector.  Submodules carry the JAX parameter tree's names
-(``nerf_mlp``, ``prop_mlp_0``, ``skynerf``, ``brightness_corr``).
+(``nerf_mlp``, ``prop_mlp_0``, ``skynerf``, ``cam_refine``,
+``brightness_corr``).
 
 The JAX package wraps the fields in ``jax.checkpoint`` (``remat_fields``),
 for the TPU's 16 GB: the port keeps the activations and never recomputes
 in the backward, so it ignores ``remat_fields``.
 
 Ray batch convention (flat tensors, [N, ...]): origins, directions,
-viewdirs, cam_dirs [N, 3]; radii, near, far [N, 1]; cam_idx [N] int.
+viewdirs, cam_dirs [N, 3]; radii, near, far [N, 1]; cam_idx [N] int; with
+``optimize_cameras``, phys_cam_idx [N] int, the physical camera whose se(3)
+delta (``cam_refine``) moves the ray.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch import nn
 
 from ucnerf_tpu_torch.configs import Config
 from ucnerf_tpu_torch.models.brightness import BrightnessCorrection, apply_affine
+from ucnerf_tpu_torch.models.cam_refine import CameraRefinement
 from ucnerf_tpu_torch.models.fields import ZipMLP
 from ucnerf_tpu_torch.models.sky import SkyNeRF, render_sky
 from ucnerf_tpu_torch.ops import (coord, grad_scaler, hashgrid, rendering,
@@ -36,8 +40,6 @@ class UCNeRFModel(nn.Module):
 
     def __init__(self, config: Config, generator: torch.Generator):
         super().__init__()
-        if config.optimize_cameras:
-            raise NotImplementedError("camera refinement is not ported yet")
         self.config = config
         mcfg = config.model
         nerf_cfg, prop_cfg = config.nerf_mlp, config.prop_mlp
@@ -55,6 +57,9 @@ class UCNeRFModel(nn.Module):
             self.skynerf = SkyNeRF(generator, net_depth=mcfg.sky_net_depth,
                                    net_width=mcfg.sky_net_width,
                                    deg_view=mcfg.sky_deg_view)
+        if config.optimize_cameras:
+            # Zeros: draws nothing from the generator.
+            self.cam_refine = CameraRefinement(config.num_phys_cams)
         if config.brightness_correction:
             self.brightness_corr = BrightnessCorrection(
                 generator, n_views=config.training_views,
@@ -95,6 +100,16 @@ class UCNeRFModel(nn.Module):
         if generator is not None and lo_bg != hi_bg:
             raise NotImplementedError("random background colours are not "
                                       "ported yet")
+
+        if cfg.optimize_cameras and "phys_cam_idx" in batch:
+            # Per-camera se(3) refinement of the rays (models/cam_refine.py),
+            # equivalent to regenerating them from Exp(delta) @ c2w.
+            o2, d2, cd2 = self.cam_refine(
+                batch["phys_cam_idx"], batch["origins"],
+                batch["directions"], batch["cam_dirs"])
+            vd2 = d2 / torch.linalg.vector_norm(d2, dim=-1, keepdim=True)
+            batch = dict(batch, origins=o2, directions=d2, cam_dirs=cd2,
+                         viewdirs=vd2)
 
         _, s_to_t = coord.construct_ray_warps(
             mcfg.raydist_fn, near, far, mcfg.power_lambda)

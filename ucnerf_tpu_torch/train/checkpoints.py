@@ -4,7 +4,10 @@
 Checkpoints live in ``{exp}/checkpoints/<step>/state.pt``; restore picks the
 highest step, and at most ``total_limit`` checkpoints are kept.  The JAX
 package writes its state tree with orbax; here ``torch.save`` writes the
-model's ``state_dict``, Adam's moments and the step counts.  The two formats
+model's ``state_dict``, Adam's state (its moments, and its param groups: the
+field's and, with ``optimize_cameras``, the camera deltas') and the step
+counts.  As in the JAX package, a checkpoint saved with camera refinement on
+does not restore with it off, nor the other way round.  The two formats
 are not interchangeable: a JAX checkpoint crosses over as numpy parameters
 through ``convert.params_from_jax``.
 """
@@ -89,6 +92,12 @@ def restore_checkpoint(base_folder: str,
     if step is None:
         return state, 0
     payload = _load(base_folder, step, next(state.model.parameters()).device)
+    saved = len(payload["adam"]["param_groups"])
+    if saved != len(state.optimizer.adam.param_groups):
+        raise ValueError(
+            f"checkpoint {step} holds {saved} optimizer param groups, the "
+            f"run {len(state.optimizer.adam.param_groups)}: "
+            f"Config.optimize_cameras differs from the saved run's")
     state.model.load_state_dict(payload["model"])
     state.optimizer.adam.load_state_dict(payload["adam"])
     state.optimizer.count = int(payload["count"])

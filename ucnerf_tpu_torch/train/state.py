@@ -6,8 +6,11 @@ The JAX package's optax chain, in its order: NaN/Inf in the gradients set to
 limit, else scale them by limit / norm), Adam (``torch.optim.Adam`` with the
 config's betas and eps), and the log-lerp learning rate with its delayed
 warm-up, evaluated at the optimizer's own update count as optax's
-``scale_by_schedule`` does.  Camera refinement (``cam_lr_mult``) is not
-ported: the model refuses ``optimize_cameras``.
+``scale_by_schedule`` does.  With camera refinement (``optimize_cameras``)
+the se(3) deltas (``cam_refine.*``) form a second Adam param group whose
+learning rate is the schedule's times ``cam_lr_mult``: the JAX chain scales
+their Adam updates by the multiplier before the schedule, which is the same
+step.  The clips see every parameter, the deltas included, as optax's do.
 """
 
 from __future__ import annotations
@@ -36,14 +39,22 @@ class Optimizer:
 
     ``update()`` reads each parameter's ``.grad`` (a missing one counts as
     zeros, as every leaf of a JAX gradient tree exists), cleans and clips the
-    gradients in place, and takes one Adam step.
+    gradients in place, and takes one Adam step.  Parameters in
+    `cam_params` (the camera deltas) make Adam's second param group, at
+    ``cam_lr_mult`` times the scheduled learning rate.
     """
 
-    def __init__(self, params, config: Config):
+    def __init__(self, params, config: Config, cam_params=()):
         self.config = config
         self.params = list(params)
+        cam = {id(p) for p in cam_params}
+        groups = [{"params": [p for p in self.params if id(p) not in cam]}]
+        self.lr_mults = [1.0]
+        if cam:
+            groups.append({"params": [p for p in self.params if id(p) in cam]})
+            self.lr_mults.append(config.cam_lr_mult)
         self.adam = torch.optim.Adam(
-            self.params, lr=config.lr_init,
+            groups, lr=config.lr_init,
             betas=(config.adam_beta1, config.adam_beta2), eps=config.adam_eps)
         self.count = 0
 
@@ -65,15 +76,16 @@ class Optimizer:
         lr = mathx.learning_rate_decay(self.count, cfg.lr_init, cfg.lr_final,
                                        cfg.max_steps, cfg.lr_delay_steps,
                                        cfg.lr_delay_mult)
-        for group in self.adam.param_groups:
-            group["lr"] = lr
+        for group, mult in zip(self.adam.param_groups, self.lr_mults):
+            group["lr"] = lr * mult
         self.adam.step()
         self.count += 1
 
 
-def create_optimizer(config: Config, params) -> Optimizer:
-    """Adam with the reference's betas/eps and the scheduled LR."""
-    return Optimizer(params, config)
+def create_optimizer(config: Config, params, cam_params=()) -> Optimizer:
+    """Adam with the reference's betas/eps and the scheduled LR; the
+    parameters in `cam_params` at ``cam_lr_mult`` times it."""
+    return Optimizer(params, config, cam_params)
 
 
 @dataclasses.dataclass
@@ -86,5 +98,6 @@ class TrainState:
 
 
 def create_train_state(config: Config, model: nn.Module) -> TrainState:
-    return TrainState(step=0, model=model,
-                      optimizer=create_optimizer(config, model.parameters()))
+    cam = getattr(model, "cam_refine", None)
+    return TrainState(step=0, model=model, optimizer=create_optimizer(
+        config, model.parameters(), () if cam is None else cam.parameters()))
