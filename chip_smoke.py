@@ -65,6 +65,37 @@ Phases:
      beside ``index_select``, and the weights' gradient einsum timed; a
      64-ray microbatch's gradients, the deltas included, against the CPU;
      two runs of 2 steps bitwise equal;
+  8c. normals phase: ``configs.waymo()`` with density and predicted
+     normals on both fields, ``contract_origin_grads`` and the ref-NeRF
+     weights of the orientation and predicted-normal losses (the preset's
+     learning-rate delay kept), from the same initial weights and batch: a
+     64-ray microbatch on the card, on the CPU and on a float64 CPU copy,
+     once with a given hex basis and once keyed by a seeded generator
+     whose draws the CPU copies replay (each loss term and gradient entry
+     of the card within 4x the CPU's error against float64, plus the
+     camera phase's tolerance; each table's gradient within 4x the CPU's
+     relative L2 error, plus 1e-5), one warm-up and 3 timed steps with the
+     launches a microbatch asserted (16 ``take_cm``, 16 ``take_wsum_cm``
+     for the double backward's d/d g, 4 fused K1: the table gradient's 2
+     and the double backward's d/d table over each whole table, 2 K2, no
+     plain K1), a 480x320 render with the normals composited (16
+     ``take_cm`` a chunk and nothing else) and a 64-ray chunk of it whose
+     normals and predicted normals are held against the CPU and float64
+     as the gradients are, two runs of 2 steps bitwise equal, and the
+     double backward's ``take_wsum_cm`` and fused K1 held against their
+     plain versions and timed on one microbatch's real inputs;
+  8d. options phase: ``configs.waymo()`` with bf16 field matmuls, scale
+     featurization, density and bottleneck noise, a random background and
+     the interlevel loss (exercise values, no published preset; the
+     preset's learning-rate delay kept): the float64 check (its keyed pass
+     carries the noise and background draws), 3 timed steps (launches as
+     the f32 phase), two runs of 2 steps bitwise equal (the interlevel
+     loss's ``inner_outer`` backward included), and the bf16 layer timed beside the f32 one;
+  8e. encoder check: ``hashgrid.encode`` forward and table gradient at
+     2^20 points through the canonical 10-level NeRF grid against float64
+     plain versions, with its launches (10 ``take_cm``, K1's plain entry
+     once: its one caller); K1's plain entry held bitwise across launches
+     and timed on the updates it was handed;
   9. CLI phase: ``ucnerf_tpu_torch.cli.train`` in-process on the synthetic
      scene (``--preset synthetic_quality`` with the bf16 backward): 30
      steps, a test render, checkpoints, then a second call that resumes at
@@ -1054,7 +1085,8 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
     check(launches == levels * chunks,
           f"K4 launched {launches} times, expected {levels} per chunk "
           f"x {chunks} chunks")
-    check(all(n == 0 for k, n in by_kernel.items() if k != "K4"),
+    check(all(n == 0 for k, n in by_kernel.items()
+              if not k.startswith("K4")),
           f"a render launched a backward kernel: {by_kernel}")
     for out in outs:
         check(out["rgb"].shape == (VIEW_H, VIEW_W, 3),
@@ -1305,8 +1337,9 @@ def reset_launches(gather, scatter):
 
 def read_launches(gather, scatter):
     """Launches by kernel; K1, K3 and K4 are each one kernel family with two
-    entry points, also counted apart; "starts" is the run-starts pass that
-    every sort of K1, K2 and K3 ends with."""
+    entry points, also counted apart (K4's as K4_take and K4_wsum);
+    "starts" is the run-starts pass that every sort of K1, K2 and K3 ends
+    with."""
     return {"K1": (scatter.scatter_add_cm.launches
                    + scatter.scatter_add_wsum_cm.launches),
             "K1_fused": scatter.scatter_add_wsum_cm.launches,
@@ -1317,6 +1350,8 @@ def read_launches(gather, scatter):
             "K3_fused": scatter.scatter_add_wsum_packed_cm.launches,
             "K3_planar": scatter.scatter_add_packed_cm.launches,
             "K4": gather.take_cm.launches + gather.take_wsum_cm.launches,
+            "K4_take": gather.take_cm.launches,
+            "K4_wsum": gather.take_wsum_cm.launches,
             "K5": scatter.scatter_add_chunked_cm.launches,
             "starts": scatter.run_starts.launches}
 
@@ -1417,12 +1452,7 @@ def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
 def with_bf16_backward(cfg):
     """cfg with grid_bwd_value_dtype='bfloat16' on both fields (what the
     CLI's two -b bindings set)."""
-    return dataclasses.replace(
-        cfg,
-        nerf_mlp=dataclasses.replace(cfg.nerf_mlp,
-                                     grid_bwd_value_dtype="bfloat16"),
-        prop_mlp=dataclasses.replace(cfg.prop_mlp,
-                                     grid_bwd_value_dtype="bfloat16"))
+    return with_mlps(cfg, grid_bwd_value_dtype="bfloat16")
 
 
 def compare_first_grads(f32_grads, bf16_grads, hashed_from):
@@ -1678,6 +1708,580 @@ def cam_train_phase(torch, gather, scatter, hashgrid, step, state_lib,
             "launches_per_step": per_step,
             "first_delta_grad": d.tolist(), "deltas": deltas.tolist(),
             "take_cm_real_step": real, "grad_check": grad}
+
+
+# The normals and options phases: timed steps after a warm-up.
+NORMALS_STEPS = 3
+OPTIONS_STEPS = 3
+# The reference encoder's check: points a call (extract's query size)
+# through the canonical NeRF grid.
+ENCODE_POINTS = 2**20
+# The card against the CPU where the field's normals or bf16 matmuls are
+# on: both devices run f32, and the normals (normalized gradients of the
+# density: table differences across a cell times the grid resolution)
+# amplify rounding ~100x, as the bf16 roundings amplify a value at a
+# rounding midpoint.  On the CPU, f32 against float64 already misses the
+# camera phase's tolerances (the normals microbatch: the NeRF table by
+# 3.1e-3 x max|grad|, density_hidden by 1.1e-3, the predicted-normal loss
+# by 2e-4 relative).  So each side is held against a float64 CPU run: the card's
+# error in every loss term and every gradient entry may be at most
+# F64_FACTOR x the CPU's largest error in that tensor, plus the camera
+# phase's tolerance (GRAD_LOSS_RTOL; GRAD_RTOL with GRAD_ATOL_FRAC x
+# max|grad|, the tables and density_hidden.weight table_atol_frac).  A
+# leaf's error comes from the few samples whose normal is ill-conditioned
+# (a short gradient), so two f32 summation orders put it a few times apart:
+# the NeRF field's density_hidden.bias is 1.56e-3 x max|grad| off on the
+# H100 and 5.6e-4 on the CPU.
+F64_FACTOR = 4.0
+
+
+def with_mlps(cfg, **mlp):
+    """cfg with `mlp` set on both fields (what -b 'NerfMLP.x = ...' and
+    -b 'PropMLP.x = ...' set)."""
+    return dataclasses.replace(
+        cfg, nerf_mlp=dataclasses.replace(cfg.nerf_mlp, **mlp),
+        prop_mlp=dataclasses.replace(cfg.prop_mlp, **mlp))
+
+
+def normals_config(configs):
+    """configs.waymo() with density and predicted normals on both fields
+    (the JAX losses walk every level and raise on a missing normal),
+    contract_origin_grads (without it the JAX package's density normals are
+    zero: its contraction stops their gradient), and the ref-NeRF weights
+    of the orientation and predicted-normal losses.  The preset's learning
+    rate delay stays: at the full rate from step 0 the first steps drive
+    the field into a degenerate state (total loss 9.7, the orientation
+    term 0), and the timed steps, the double backward's recorded inputs
+    and the render would come from it."""
+    cfg = configs.waymo(contract_origin_grads=True,
+                        orientation_loss_mult=0.1,
+                        orientation_coarse_loss_mult=0.01,
+                        predicted_normal_loss_mult=3e-4,
+                        predicted_normal_coarse_loss_mult=3e-5)
+    return with_mlps(cfg, disable_density_normals=False,
+                     enable_pred_normals=True)
+
+
+def options_config(configs):
+    """configs.waymo() with the field's remaining options on, at exercise
+    values (no published preset sets them): bf16 matmuls in both fields,
+    scale featurization in the NeRF field, density and bottleneck noise, a
+    random background colour and the interlevel loss.  The preset's
+    learning-rate delay stays, as in normals_config (at the full rate the
+    first step sends the total loss to 8.8)."""
+    cfg = configs.waymo(interlevel_loss_mult=1.0)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, bg_intensity_range=(0.0, 1.0)))
+    cfg = with_mlps(cfg, compute_dtype="bfloat16", density_noise=1.0,
+                    bottleneck_noise=0.1)
+    return dataclasses.replace(cfg, nerf_mlp=dataclasses.replace(
+        cfg.nerf_mlp, scale_featurization=True))
+
+
+@contextlib.contextmanager
+def shared_draws(torch, draws, dtype):
+    """Within, ``torch.rand`` and ``torch.randn`` record their draws in
+    `draws` while it is empty and hand them back in order, on the asked
+    device and in `dtype`, once it is not: the model's keyed draws
+    (jitter, hex flip, rotation and basis, the fields' noise, the
+    background) are then the card's on the CPU copies too."""
+    real = {"rand": torch.rand, "randn": torch.randn}
+    replay = list(draws)
+
+    def make(name):
+        def draw(*size, generator=None, device=None, **kwargs):
+            if not replay:
+                out = real[name](*size, generator=generator, device=device,
+                                 **kwargs)
+                draws.append(out.detach().cpu())
+                return out
+            out = replay.pop(0)
+            shape = size[0] if len(size) == 1 and not isinstance(
+                size[0], int) else size
+            check(tuple(out.shape) == tuple(shape),
+                  f"replayed {name} draw {tuple(out.shape)} for {shape}")
+            return out.to(device, dtype)
+        return draw
+
+    torch.rand, torch.randn = make("rand"), make("randn")
+    try:
+        yield
+    finally:
+        torch.rand, torch.randn = real["rand"], real["randn"]
+        check(not replay, f"{len(replay)} recorded draws not replayed")
+
+
+def grad_check_f64(torch, losses_lib, model, cfg, batch, label):
+    """One 64-ray microbatch on the card, on a CPU copy and on a float64
+    CPU copy, twice: with generator=None and a given rand_vec, and keyed by
+    a seeded generator whose draws are the card's on all three
+    (shared_draws).  Every loss term and gradient entry of the card within
+    F64_FACTOR x the CPU's largest error of that tensor against float64,
+    plus the camera phase's tolerance; and each hash table's gradient
+    within F64_FACTOR x the CPU's relative L2 error against float64, plus
+    GRAD_ATOL_FRAC."""
+    return {"unkeyed": grad_check_pass(torch, losses_lib, model, cfg, batch,
+                                       label, keyed=False),
+            "keyed": grad_check_pass(torch, losses_lib, model, cfg, batch,
+                                     f"{label} keyed", keyed=True)}
+
+
+def grad_check_pass(torch, losses_lib, model, cfg, batch, label, keyed):
+    n = 64
+    part = {k: v[:n].cpu() for k, v in batch.items()}
+    rand_vec = torch.from_numpy(
+        np.random.default_rng(8).normal(size=(n, 3)).astype(np.float32))
+    model.zero_grad(set_to_none=True)
+    card = batch["origins"].device
+    results, draws = [], []
+    for dev, dt in ((card, torch.float32), ("cpu", torch.float32),
+                    ("cpu", torch.float64)):
+        m = model if dev is card else copy.deepcopy(model).to(dev, dt)
+        b = {k: v.to(dev, dt) if v.is_floating_point() else v.to(dev)
+             for k, v in part.items()}
+        if keyed:
+            gen = torch.Generator(device=dev).manual_seed(9)
+            with shared_draws(torch, draws, dt):
+                renderings, history = m(b, 0.5, None, train=True,
+                                        generator=gen)
+        else:
+            renderings, history = m(b, 0.5, rand_vec.to(dev, dt),
+                                    train=True)
+        total, losses, _ = losses_lib.compute_all_losses(b, renderings,
+                                                         history, cfg)
+        total.backward()
+        results.append((dict({k: float(v.detach())
+                              for k, v in losses.items()},
+                             total=float(total.detach())),
+                        {k: p.grad.detach().to("cpu", torch.float64)
+                         for k, p in m.named_parameters()}))
+        del renderings, history, total, losses
+        if m is not model:
+            del m
+    (loss_g, grad_g), (loss_c, grad_c), (loss_64, grad_64) = results
+    model.zero_grad(set_to_none=True)
+    bad, worst, tables = [], {}, {}
+    for k, exact in loss_64.items():
+        lim = F64_FACTOR * abs(loss_c[k] - exact) + GRAD_LOSS_RTOL * abs(exact)
+        if abs(loss_g[k] - exact) > lim:
+            bad.append(f"loss {k}: card {loss_g[k]}, cpu {loss_c[k]}, "
+                       f"float64 {exact}")
+    modules = dict(model.named_modules())
+    for k, exact in grad_64.items():
+        scale = float(exact.abs().max())
+        field, _, leaf = k.partition(".")
+        frac = GRAD_ATOL_FRAC
+        if leaf in ("table", "density_hidden.weight"):
+            frac = table_atol_frac(modules[field].grid_spec)
+        err_c = float((grad_c[k] - exact).abs().max())
+        err_g = (grad_g[k] - exact).abs()
+        worst[k] = (float(err_g.max()) / max(scale, 1e-30),
+                    err_c / max(scale, 1e-30))
+        lim = F64_FACTOR * err_c + GRAD_RTOL * exact.abs() + frac * scale
+        if bool((err_g > lim).any()):
+            bad.append(f"{k} (card err/max {worst[k][0]:.3g}, cpu "
+                       f"{worst[k][1]:.3g})")
+        if leaf == "table":
+            norm = max(float(exact.norm()), 1e-30)
+            rel = (float((grad_g[k] - exact).norm()) / norm,
+                   float((grad_c[k] - exact).norm()) / norm)
+            tables[k] = rel
+            if rel[0] > F64_FACTOR * rel[1] + GRAD_ATOL_FRAC:
+                bad.append(f"{k} relative L2 err: card {rel[0]:.3g}, cpu "
+                           f"{rel[1]:.3g}")
+    zero = [k for k, v in grad_64.items() if not bool(v.abs().max() > 0)]
+    top = max(worst, key=lambda k: worst[k][0])
+    print(f"[{label}] 64-ray card / CPU / float64 CPU: losses {loss_g} / "
+          f"{loss_c} / {loss_64}; worst gradient err/max|grad| against "
+          f"float64: card {worst[top][0]:.3g}, CPU {worst[top][1]:.3g} "
+          f"({top}); limit {F64_FACTOR} x the CPU's error + rtol "
+          f"{GRAD_RTOL} + {GRAD_ATOL_FRAC} x max|grad| (tables and "
+          f"density_hidden.weight table_atol_frac); tables' relative L2 "
+          f"err card / CPU {tables} (limit {F64_FACTOR} x the CPU's + "
+          f"{GRAD_ATOL_FRAC}); {len(draws)} shared draws; zero gradients "
+          f"{zero}", flush=True)
+    check(not bad, f"{label}: card against float64 out of tolerance: {bad}")
+    check(not zero, f"{label}: zero gradients: {zero}")
+    return {"losses_card": loss_g, "losses_cpu": loss_c,
+            "losses_float64": loss_64, "worst_grad": top,
+            "worst_grad_err_frac_card": worst[top][0],
+            "worst_grad_err_frac_cpu": worst[top][1],
+            "table_rel_l2_card_cpu": tables, "shared_draws": len(draws)}
+
+
+def record_double_backward(torch, gather, scatter, hashgrid, losses_lib,
+                           model, cfg, batch):
+    """The calls that one normals microbatch's backward makes to K4's fused
+    entry and to K1's fused entry over a whole table (keys of every level:
+    the double backward's d/d table; the ordinary table gradient's fused K1
+    covers the hashed levels alone), each launched as usual."""
+    n = cfg.batch_size // cfg.microbatches
+    part = {k: v[:n] for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    k1_calls = []
+    rows_of = {m.grid_spec.table_rows for m in model.modules()
+               if hasattr(m, "grid_spec")}
+
+    def wsum_recorder(g, w, keys, num_rows, out=None):
+        if num_rows in rows_of:
+            k1_calls.append((g.detach().clone(), w.detach().clone(),
+                             keys.clone(), num_rows))
+        return scatter.scatter_add_wsum_cm(g, w, keys, num_rows, out=out)
+
+    def run():
+        renderings, history = model(part, 0.5, None, compute_extras=False,
+                                    train=True, generator=gen)
+        total, _, _ = losses_lib.compute_all_losses(part, renderings,
+                                                    history, cfg)
+        total.backward()
+
+    hashgrid.scatter = types.SimpleNamespace(
+        scatter_add_wsum_cm=wsum_recorder,
+        scatter_add_dense_cm=scatter.scatter_add_dense_cm,
+        scatter_add_wsum_packed_cm=scatter.scatter_add_wsum_packed_cm,
+        scatter_add_cm=scatter.scatter_add_cm)
+    try:
+        k4_calls = record_k4_calls(torch, gather, hashgrid, run)
+    finally:
+        hashgrid.scatter = scatter
+    model.zero_grad(set_to_none=True)
+    return k4_calls, k1_calls
+
+
+def hold_double_backward(torch, gather, scatter, hashgrid, losses_lib, model,
+                         cfg, batch):
+    """K4's fused entry and K1's fused entry on what the double backward of
+    one normals microbatch hands them (the weights' cotangent in the place
+    of the weights), held against their plain versions and timed: K4 at the
+    proposal and NeRF level touching the most rows, K1 over each grid's
+    whole table."""
+    k4_calls, k1_calls = record_double_backward(
+        torch, gather, scatter, hashgrid, losses_lib, model, cfg, batch)
+    levels = sum(m.grid_spec.num_levels for m in model.modules()
+                 if hasattr(m, "grid_spec"))
+    check(len(k4_calls) == levels and len(k1_calls) == 2,
+          f"one normals microbatch's double backward made {len(k4_calls)} "
+          f"take_wsum_cm and {len(k1_calls)} whole-table fused K1 calls; "
+          f"expected {levels} and 2")
+    by_n = {}
+    for table, idx, w in k4_calls:
+        by_n.setdefault(idx.shape[1], []).append((table, idx, w))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    res = {"K4": [], "K1": []}
+    for grid, npts in zip(("nerf", "proposal"), sorted(by_n)):
+        take, wsum = hold_k4(torch, gather, *most_rows(torch, by_n[npts]),
+                             gen, f"double backward {grid} level",
+                             f"double backward {grid} level")
+        res["K4"].append({"grid": grid, "take_cm": take,
+                          "take_wsum_cm": wsum})
+    del k4_calls, by_n
+    for grid, (g, w, keys, rows) in zip(
+            ("proposal", "nerf"), sorted(k1_calls, key=lambda c: c[3])):
+        rec = wsum_call(torch, scatter, f"K1 fused double backward {grid}",
+                        g, w, keys, rows)
+        rec["grid"] = grid
+        print_scatter(f"K1 fused double backward {grid}", rec)
+        res["K1"].append(rec)
+    del k1_calls
+    torch.cuda.empty_cache()
+    return res
+
+
+def field_phase(torch, gather, scatter, hashgrid, step, state_lib,
+                losses_lib, cfg, batch, model, steps, label, per_mb,
+                views=None, profile=None):
+    """A training path of the field's options at full width: the 64-ray
+    check against float64 (grad_check_f64), one warm-up and `steps` timed
+    steps with the launches counted (per_mb: launches by kernel per
+    microbatch), two runs of 2 steps bitwise equal; with `views`, one
+    480x320 render of the first view with its launches counted; with
+    `profile`, one step's kernel table written there."""
+    initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    grad = grad_check_f64(torch, losses_lib, model, cfg, batch, label)
+    state = state_lib.create_train_state(cfg, model)
+    train_step = step.make_train_step(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state, _ = train_step(state, batch, 0.5, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(gather, scatter)
+    secs, totals, terms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, stats = train_step(state, batch, 0.5, generator=gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        totals.append(float(stats["loss"]))
+        terms.append({k: float(v) for k, v in stats["losses"].items()})
+    launches = read_launches(gather, scatter)
+    peak = torch.cuda.max_memory_allocated()
+    K4_BY_ENTRY["take_cm"] += gather.take_cm.launches
+    K4_BY_ENTRY["take_wsum_cm"] += gather.take_wsum_cm.launches
+    for i, (total, t) in enumerate(zip(totals, terms)):
+        check(np.isfinite(total) and all(np.isfinite(v) for v in t.values()),
+              f"{label} step {i + 1}: non-finite loss {total} {t}")
+    per_step = {k: n * cfg.microbatches for k, n in per_mb.items()}
+    for k, n in per_step.items():
+        check(launches[k] == n * steps,
+              f"{label}: {k} launched {launches[k]} times in {steps} steps, "
+              f"expected {n} per step")
+    med = float(np.median(secs))
+    print(f"[{label}] {TRAIN_RAYS} rays x {steps} steps ({cfg.microbatches} "
+          f"microbatches): step s {[round(x, 4) for x in secs]}, train "
+          f"rays/s {TRAIN_RAYS / med:.1f}, peak {peak} B "
+          f"({peak / 2**30:.2f} GiB), loss {[round(x, 5) for x in totals]}, "
+          f"launches {launches}; loss terms step {steps} {terms[-1]}",
+          flush=True)
+    res = {"rays_per_s": TRAIN_RAYS / med, "step_seconds": secs,
+           "peak_bytes": peak, "totals": totals, "terms": terms,
+           "launches": launches, "launches_per_step": per_step,
+           "grad_check": grad}
+    if profile:
+        profile_train_step(torch, model, cfg, batch, step, state_lib, profile)
+    if views is not None:
+        res["render"] = normals_render(torch, gather, scatter, step, model,
+                                       cfg, views[0])
+    del state, train_step
+    torch.cuda.empty_cache()
+    res["repeat"] = repeat_phase(torch, step, state_lib, ((label, cfg),),
+                                 initial, batch)
+    return res
+
+
+def normals_render(torch, gather, scatter, step, model, cfg, view):
+    """One 480x320 render of a normals model through render_image, with the
+    launches counted from 0: the normals' gradient is taken inside the eval
+    step's no_grad, so every K4 launch keeps its rows (take_cm, 16 a chunk)
+    and no scatter runs.  Then a 64-ray chunk of the view through the eval
+    step on the card, on a CPU copy and on a float64 CPU copy: the
+    composited normals and predicted normals of the card within F64_FACTOR
+    x the CPU's largest error against float64, plus the render check's
+    tolerance (RENDER_ATOL, RENDER_RTOL)."""
+    eval_step = step.make_eval_step(model, cfg, seed=0)
+    chunks = -(-VIEW_W * VIEW_H // cfg.render_chunk_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(gather, scatter)
+    t0 = time.perf_counter()
+    out = step.render_image(eval_step, view, cfg, eval_camidx=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(gather, scatter)
+    peak = torch.cuda.max_memory_allocated()
+    K4_BY_ENTRY["take_cm"] += gather.take_cm.launches
+    K4_BY_ENTRY["take_wsum_cm"] += gather.take_wsum_cm.launches
+    check(launches["K4_take"] == 16 * chunks and launches["K4_wsum"] == 0
+          and all(launches[k] == 0 for k in ("K1", "K2", "K3", "K5",
+                                             "starts")),
+          f"normals render: launches {launches}; expected {16 * chunks} "
+          f"take_cm and nothing else")
+    # A composite of unit vectors is no longer than the weights' sum.
+    for k in ("normals", "normals_pred"):
+        check(out[k].shape == (VIEW_H, VIEW_W, 3), f"{k} {out[k].shape}")
+        norm = np.linalg.norm(out[k], axis=-1)
+        check(bool((norm <= out["acc"] + 1e-4).all()) and norm.max() > 0,
+              f"rendered {k}: |n| in [{norm.min()}, {norm.max()}], longer "
+              f"than acc at {int((norm > out['acc'] + 1e-4).sum())} pixels")
+    for k, v in out.items():
+        check(np.isfinite(v).all(), f"normals render: {k} not finite")
+    rate = VIEW_W * VIEW_H / secs
+    take_per_chunk = launches["K4_take"] / chunks
+    length = float(np.mean(np.linalg.norm(out["normals"], axis=-1)
+                           / np.maximum(out["acc"], 1e-6)))
+    print(f"[normals] render {VIEW_W}x{VIEW_H} with the normals composited: "
+          f"{secs:.3f} s, {rate:.1f} rays/s, peak {peak / 2**30:.2f} GiB, "
+          f"launches {launches} (K4 all take_cm, {take_per_chunk} a chunk "
+          f"x {chunks} chunks); mean |normals| / acc {length:.4f}",
+          flush=True)
+
+    stride = VIEW_W * VIEW_H // 64
+    flat = {k: np.ascontiguousarray(v.reshape((-1,) + v.shape[2:])[::stride])
+            for k, v in view.items()}
+    rand_vec = torch.from_numpy(
+        np.random.default_rng(3).normal(size=(64, 3)).astype(np.float32))
+    results = []
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                    ("cpu", torch.float64)):
+        ev = eval_step if dev == "cuda" else step.make_eval_step(
+            copy.deepcopy(model).to(dev, dt), cfg, seed=0)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in flat.items()}
+        b = {k: v.to(dt) if v.is_floating_point() else v
+             for k, v in b.items()}
+        res = ev(b, 1.0, 0, rand_vec.to(dev, dt))
+        results.append({k: res[k].to("cpu", torch.float64).numpy()
+                        for k in ("normals", "normals_pred", "acc")})
+        del ev
+    card_r, cpu_r, f64_r = results
+    errs = {}
+    for k in ("normals", "normals_pred"):
+        err_c = float(np.abs(cpu_r[k] - f64_r[k]).max())
+        err_g = np.abs(card_r[k] - f64_r[k])
+        lim = F64_FACTOR * err_c + RENDER_ATOL + RENDER_RTOL * np.abs(f64_r[k])
+        errs[k] = {"card": float(err_g.max()), "cpu": err_c}
+        check(bool((err_g <= lim).all()),
+              f"normals render chunk: {k} card vs float64 max abs err "
+              f"{errs[k]['card']}, the CPU's {err_c}")
+        check(float(np.abs(f64_r[k]).max()) > 0.1,
+              f"normals render chunk: {k} max |.| "
+              f"{float(np.abs(f64_r[k]).max())} in float64")
+    print(f"[normals] 64-ray render chunk card / CPU against float64: max "
+          f"abs err {errs} (limit {F64_FACTOR} x the CPU's + atol "
+          f"{RENDER_ATOL} + rtol {RENDER_RTOL})", flush=True)
+    return {"seconds": secs, "rays_per_s": rate, "peak_bytes": peak,
+            "launches": launches, "chunks": chunks,
+            "take_cm_per_chunk": take_per_chunk, "chunk_vs_float64": errs}
+
+
+def dense_bf16_times(torch, model, cfg):
+    """The bf16 field matmul (DenseCM with compute_dtype='bfloat16': the
+    bf16-rounded weight and input multiplied in f32, an f32 output) against
+    the f32 layer, forward + backward of the NeRF field's first view-
+    direction layer at one microbatch's samples."""
+    layer = model.nerf_mlp.lin_second_stage_0
+    m = cfg.batch_size // cfg.microbatches * cfg.model.num_nerf_samples
+    x = torch.randn((layer.weight.shape[1], m), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(17),
+                    requires_grad=True)
+    g = torch.randn((layer.weight.shape[0], m), device="cuda")
+    f32 = copy.deepcopy(layer)
+    f32.compute_dtype = None
+
+    def run(mod):
+        x.grad = None
+        mod.zero_grad(set_to_none=True)
+        mod(x).backward(g)
+
+    rec = {"shape": [layer.weight.shape[0], layer.weight.shape[1], m],
+           "bf16_ms": time_ms(lambda: run(layer), torch),
+           "f32_ms": time_ms(lambda: run(f32), torch)}
+    print(f"[options] bf16 field matmul (bf16-rounded operands multiplied in "
+          f"f32, f32 output) {rec['shape']} forward + backward: "
+          f"{rec['bf16_ms']:.4f} ms, the f32 layer {rec['f32_ms']:.4f} ms",
+          flush=True)
+    return rec
+
+
+def encode_check(torch, gather, scatter, hashgrid, configs, k1):
+    """The reference encoder (hashgrid.encode) forward and table gradient
+    at ENCODE_POINTS points through the canonical 10-level NeRF grid, with
+    the launches counted from 0 (10 take_cm, one K1 plain entry), held
+    against float64 plain versions on the card; K1's plain entry held and
+    timed on the updates it was handed."""
+    cfg = configs.waymo()
+    spec = hashgrid.HashGridSpec(
+        num_levels=cfg.nerf_mlp.grid_num_levels,
+        level_dim=cfg.nerf_mlp.grid_level_dim,
+        base_resolution=cfg.nerf_mlp.grid_base_resolution,
+        desired_resolution=cfg.nerf_mlp.grid_desired_resolution,
+        log2_hashmap_size=cfg.nerf_mlp.grid_log2_hashmap_size)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    table = (0.1 * torch.randn((spec.level_dim, spec.table_rows),
+                               generator=gen, device="cuda")
+             ).requires_grad_()
+    x = torch.rand((ENCODE_POINTS, 3), generator=gen,
+                   device="cuda") * 2.2 - 1.1  # some outside the cube
+    probe = torch.randn((ENCODE_POINTS, spec.num_levels, spec.level_dim),
+                        generator=gen, device="cuda")
+    recorded = []
+
+    def k1_recorder(values, idx, num_rows, out=None):
+        recorded.append((values.detach().clone(), idx.clone(), num_rows))
+        return scatter.scatter_add_cm(values, idx, num_rows, out)
+
+    torch.cuda.synchronize()
+    reset_launches(gather, scatter)
+    t0 = time.perf_counter()
+    feats = hashgrid.encode(x, table, spec)
+    (feats * probe).sum().backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(gather, scatter)
+    K4_BY_ENTRY["take_cm"] += gather.take_cm.launches
+    K4_BY_ENTRY["take_wsum_cm"] += gather.take_wsum_cm.launches
+    expect = {"K4_take": spec.num_levels, "K4_wsum": 0, "K1_plain": 1,
+              "K1_fused": 0, "K2": 0, "K3": 0, "K5": 0, "starts": 1}
+    check(all(launches[k] == n for k, n in expect.items()),
+          f"encode: launches {launches}, expected {expect}")
+
+    # Float64 plain versions of the same lookups and table gradient.
+    x01 = (x + 1.0) / 2.0
+    oob = ((x01 < 0) | (x01 > 1)).any(dim=-1)
+    x01 = torch.clamp(x01, 0.0, 1.0).T[:, None]
+    t64 = table.detach().double()
+    want = []
+    keys, values = [], []
+    for level in range(spec.num_levels):
+        idx, w, _ = hashgrid._level_corners(spec, level, x01)
+        lo, hi = spec.offsets[level], spec.offsets[level + 1]
+        rows = gather.take_cm_plain(t64[:, lo:hi], idx[:, 0])
+        acc = (rows * w[:, 0].double()[None]).sum(dim=1)
+        want.append(torch.where(oob[None], 0.0, acc).T)
+        g = torch.where(oob[:, None], 0.0, probe[:, level].double()).T
+        values.append((w[:, 0].double()[None] * g[:, None]).reshape(
+            spec.level_dim, -1))
+        keys.append((idx[:, 0] + lo).reshape(-1).long())
+    want = torch.stack(want, dim=1)
+    feat_err = float((feats.detach().double() - want).abs().max())
+    check(feat_err <= 1e-5 * float(want.abs().max()),
+          f"encode features: max err {feat_err} against float64")
+    grad64 = torch.zeros_like(t64).index_add_(1, torch.cat(keys),
+                                              torch.cat(values, dim=1))
+    del keys, values, want
+    err = (table.grad.double() - grad64).abs()
+    scale = float(grad64.abs().max())
+    check(bool((err <= SCATTER_RTOL * grad64.abs()
+                + SCATTER_ATOL_FRAC * scale).all()),
+          f"encode table gradient: max err {float(err.max())} against "
+          f"float64 (max |grad| {scale})")
+    grad_err = float(err.max())
+    del grad64, err
+
+    # K1's plain entry on the updates the backward handed it.
+    hashgrid.scatter = types.SimpleNamespace(scatter_add_cm=k1_recorder)
+    try:
+        table.grad = None
+        feats = hashgrid.encode(x, table, spec)
+        (feats * probe).sum().backward()
+    finally:
+        hashgrid.scatter = scatter
+    values, idx, rows = recorded[0]
+    del feats, recorded
+    out = scatter.scatter_add_cm(values, idx, rows)
+    check(torch.equal(out, table.grad), "K1's plain entry on the recorded "
+          "updates differs from the encoder's table gradient")
+    check(torch.equal(out, scatter.scatter_add_cm(values, idx, rows)),
+          "K1's plain entry is not bitwise repeatable")
+    perm, starts = scatter.sort_rows(idx, rows)
+    c, m = values.shape
+    idx64 = idx.long()
+    rec = {"M": m, "rows": rows, "points": ENCODE_POINTS,
+           "levels": spec.num_levels, "seconds_forward_backward": secs,
+           "ms": time_ms(lambda: scatter.scatter_add_cm(values, idx, rows,
+                                                        out=out), torch),
+           "launch_ms": time_ms(lambda: scatter.segment_sum_cm(
+               values, perm, starts, out), torch),
+           "prep_ms": time_ms(lambda: scatter.sort_rows(idx, rows), torch),
+           "plain_ms": time_ms(lambda: scatter.scatter_add_cm_plain(
+               values, idx, rows, out), torch),
+           "library_ms": time_ms(lambda: out.zero_().index_add_(
+               1, idx64, values), torch),
+           # values and keys read once, the table gradient written once.
+           "bound_ms": (4 * c * m + 4 * m + 4 * c * rows)
+           / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "max_abs_err": grad_err,
+           "feature_max_abs_err": feat_err, "launches": launches}
+    print(f"[encode] hashgrid.encode at {ENCODE_POINTS} points x "
+          f"{spec.num_levels} levels: forward + backward {secs:.3f} s, "
+          f"launches {launches}; features max err {feat_err:.3g}, table "
+          f"gradient max err {grad_err:.3g} against float64 plain versions; "
+          f"K1 plain entry M={m} rows={rows}: {rec['ms']:.4f} ms (launch "
+          f"half {rec['launch_ms']:.4f}, prep {rec['prep_ms']:.4f}, plain "
+          f"{rec['plain_ms']:.4f}, index_add_ {rec['library_ms']:.4f}, "
+          f"bound {rec['bound_ms']:.4f}), bitwise repeatable", flush=True)
+    k1["encode"] = rec
+    del values, idx, idx64, out, perm, starts, table, x, probe
+    torch.cuda.empty_cache()
+    return launches
 
 
 def steady_windows(logged, start, render_every):
@@ -2102,7 +2706,9 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kind = ("bf16 backward" if cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
-            else "camera refinement" if cfg.optimize_cameras else None)
+            else "camera refinement" if cfg.optimize_cameras
+            else "normals" if not cfg.nerf_mlp.disable_density_normals
+            else "options" if cfg.nerf_mlp.compute_dtype else None)
     # Kernels by the template argument or name that marks them: K1's fused
     # entry (its walks and the grads' interleave), K2 (walks and the two
     # record passes), K3 (the planar walk; the fused entry's walk and its
@@ -2118,7 +2724,8 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
                           "form_records_kernel"),
                    "prep": ("RadixSort", "run_starts_kernel"),
                    "K4": ("take_wsum_kernel", "take_kernel",
-                          "interleave_kernel<")})
+                          "interleave_kernel<"),
+                   "gemv": ("gemv",)})
 
 
 def write_profile(torch, prof, wall_us, path, what, names):
@@ -2999,10 +3606,11 @@ def main(argv=None):
     parser.add_argument("--profile", help="also profile one render chunk "
                         "and write its kernel table here")
     parser.add_argument("--profile-train", help="also profile one training "
-                        "step with each backward and one with camera "
-                        "refinement, and write the kernel tables here (f32) "
-                        "and beside it with '.bf16' and '.cam' before the "
-                        "extension")
+                        "step with each backward, one with camera "
+                        "refinement, one with normals and one with the "
+                        "options, and write the kernel tables here (f32) "
+                        "and beside it with '.bf16', '.cam', '.normals' and "
+                        "'.options' before the extension")
     args = parser.parse_args(argv)
 
     import torch
@@ -3087,7 +3695,57 @@ def main(argv=None):
     initial["cam_refine.se3_deltas"] = torch.zeros(cam_cfg.num_phys_cams, 6)
     repeat_res.update(repeat_phase(torch, step, state_lib,
                                    (("camera", cam_cfg),), initial, batch))
-    del initial, batch
+    del initial["cam_refine.se3_deltas"]
+    torch.cuda.empty_cache()
+
+    # Density and predicted normals with their losses, from the same initial
+    # weights (the normal layers from the seed) and batch: the second
+    # derivative through the hash grid.
+    norm_cfg = normals_config(configs)
+    norm_model = step.init_model(norm_cfg, seed=0, device="cuda")
+    missing, unexpected = norm_model.load_state_dict(initial, strict=False)
+    check(sorted(missing) == sorted(
+        f"{f}.normal_layer.{p}" for f in ("nerf_mlp", "prop_mlp_0")
+        for p in ("weight", "bias")) and not unexpected,
+        f"normals model: missing {missing}, unexpected {unexpected}")
+    norm_res = field_phase(
+        torch, gather, scatter, hashgrid, step, state_lib, losses_lib,
+        norm_cfg, batch, norm_model, NORMALS_STEPS, "normals",
+        {"K4": 32, "K4_take": 16, "K4_wsum": 16, "K1": 4, "K1_fused": 4,
+         "K1_plain": 0, "K2": 2, "K3": 0, "K3_fused": 0, "K3_planar": 0,
+         "K5": 0, "starts": 6}, views=views,
+        profile="{0}.normals{1}".format(*os.path.splitext(args.profile_train))
+        if args.profile_train else None)
+    norm_res["double_backward"] = hold_double_backward(
+        torch, gather, scatter, hashgrid, losses_lib, norm_model, norm_cfg,
+        batch)
+    del norm_model
+    torch.cuda.empty_cache()
+
+    # The remaining options (bf16 matmuls, scale featurization, noise, a
+    # random background, the interlevel loss) from the same initial weights
+    # but the NeRF field's first layer, which scale featurization widens
+    # (from the seed).
+    opt_cfg = options_config(configs)
+    opt_model = step.init_model(opt_cfg, seed=0, device="cuda")
+    widened = "nerf_mlp.density_hidden.weight"
+    missing, unexpected = opt_model.load_state_dict(
+        {k: v for k, v in initial.items() if k != widened}, strict=False)
+    check(missing == [widened] and not unexpected,
+          f"options model: missing {missing}, unexpected {unexpected}")
+    opt_res = field_phase(
+        torch, gather, scatter, hashgrid, step, state_lib, losses_lib,
+        opt_cfg, batch, opt_model, OPTIONS_STEPS, "options",
+        {"K4": 16, "K4_take": 0, "K4_wsum": 16, "K1": 2, "K1_fused": 2,
+         "K1_plain": 0, "K2": 2, "K3": 0, "K3_fused": 0, "K3_planar": 0,
+         "K5": 0, "starts": 4},
+        profile="{0}.options{1}".format(*os.path.splitext(args.profile_train))
+        if args.profile_train else None)
+    opt_res["bf16_matmul"] = dense_bf16_times(torch, opt_model, opt_cfg)
+    del opt_model, initial, batch
+    torch.cuda.empty_cache()
+    encode_launches = encode_check(torch, gather, scatter, hashgrid, configs,
+                                   k1)
     torch.cuda.empty_cache()
 
     # The training CLI's experiment folder stays until the serving phase
@@ -3113,6 +3771,10 @@ def main(argv=None):
              "train_f32": train_res["launches"],
              "train_bf16": bf16_res["launches"],
              "train_cam": cam_res["launches"],
+             "train_normals": norm_res["launches"],
+             "render_normals": norm_res["render"]["launches"],
+             "train_options": opt_res["launches"],
+             "encode": encode_launches,
              "cli_train": cli_res[0]["launches"],
              "cli_resume": cli_res[1]["launches"], **serve_paths,
              **mvs_paths, **pose_paths}
@@ -3134,10 +3796,15 @@ def main(argv=None):
     check(sum(K4_BY_ENTRY.values()) == k4["launches"],
           f"K4's launches by entry {K4_BY_ENTRY} do not add up to "
           f"{k4['launches']}")
-    check(K4_BY_ENTRY["take_cm"] == paths["train_cam"]["K4"] > 0,
-          f"take_cm launched {K4_BY_ENTRY['take_cm']} times on the paths, "
-          f"the camera-refinement path's K4 launches "
-          f"{paths['train_cam']['K4']}")
+    take_paths = ("train_cam", "train_normals", "render_normals", "encode")
+    check(K4_BY_ENTRY["take_cm"] == sum(paths[p]["K4_take"]
+                                        for p in take_paths)
+          and all(paths[p]["K4_take"] > 0 for p in take_paths)
+          and all(n.get("K4_take", 0) == 0 for p, n in paths.items()
+                  if p not in take_paths),
+          f"take_cm launched {K4_BY_ENTRY['take_cm']} times on the paths; "
+          f"expected it on {take_paths} alone: "
+          f"{ {p: n.get('K4_take') for p, n in paths.items()} }")
     k4["launches_by_entry"] = dict(K4_BY_ENTRY)
     k4["take_wsum_cm"].update(
         name="take_wsum_cm (K4's fused entry: gather + 8-corner weighted "
@@ -3150,8 +3817,12 @@ def main(argv=None):
     k1["launches_by_entry"] = {
         "scatter_add_wsum_cm": sum(n["K1_fused"] for n in paths.values()),
         "scatter_add_cm": sum(n["K1_plain"] for n in paths.values())}
-    check(k1["launches_by_entry"]["scatter_add_cm"] == 0,
-          f"K1's plain entry was launched on a path: {k1['launches_by_entry']}")
+    # K1's plain entry has one caller, the reference encoder's backward.
+    check(k1["launches_by_entry"]["scatter_add_cm"]
+          == paths["encode"]["K1_plain"] == 1,
+          f"K1's plain entry launched on the paths "
+          f"{ {p: n.get('K1_plain') for p, n in paths.items()} }; expected "
+          f"once, on the encoder's path alone")
     # K3 likewise only through its fused entry: no path builds the [C/2, M]
     # packed words.
     k3["launches_by_entry"] = {
@@ -3170,6 +3841,17 @@ def main(argv=None):
         entry["launches_per_step"] = train_res["launches_per_step"][key]
         entry["launches_per_camera_step"] = cam_res["launches_per_step"][key]
     k3["launches_per_step"] = bf16_res["launches_per_step"]["K3"]
+    # The normals step's new roles: K4's two entries and K1's fused entry
+    # twice (the table gradient and the double backward's d/d table).
+    k4["launches_per_normals_step"] = {
+        "take_cm": norm_res["launches_per_step"]["K4_take"],
+        "take_wsum_cm": norm_res["launches_per_step"]["K4_wsum"]}
+    k4["launches_per_normals_render_chunk"] = \
+        norm_res["render"]["take_cm_per_chunk"]
+    k4["double_backward"] = norm_res["double_backward"]["K4"]
+    k1["launches_per_normals_step"] = norm_res["launches_per_step"]["K1"]
+    k1["double_backward"] = norm_res["double_backward"]["K1"]
+    k2["launches_per_normals_step"] = norm_res["launches_per_step"]["K2"]
 
     kernels = {"kernels": [k4, k1, k2, k3, k5]}
     if args.out:
@@ -3177,6 +3859,7 @@ def main(argv=None):
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "render": slice_res, "train": train_res,
                        "train_bf16": bf16_res, "train_cam": cam_res,
+                       "train_normals": norm_res, "train_options": opt_res,
                        "repeat": repeat_res, "cli": cli_res,
                        "serve": serve_res, "grad_check": grad_res,
                        "mvs": mvs_res, "pose": pose_res}, f, indent=1)

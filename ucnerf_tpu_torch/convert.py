@@ -8,6 +8,10 @@ port's modules carry the JAX names, so the only changes are the dotted keys
 and the kernels: JAX stores a dense kernel [in, out] and a conv kernel
 [kh, kw, in, out] as ``kernel``, torch as ``weight`` [out, in] and
 [out, in, kh, kw].  Hash tables stay channel-major [C, rows] on both sides.
+The field's option layers (``normal_layer``, ``lin_glo_*``, the wider
+``density_hidden`` of scale featurization) carry the JAX names and shapes,
+so they cross the same way; a JAX model tree holds the GLO layers only if
+a ``glo_vec`` was passed at its init, the port's ``ZipMLP`` always.
 """
 
 from __future__ import annotations

@@ -3,9 +3,16 @@
 
 Channel-major like the JAX package: every large activation is [features, N].
 Submodules carry the JAX parameter tree's names (``density_hidden``,
-``lin_second_stage_0``, ...), so ``convert.params_from_jax`` is a rename of
-``kernel`` to ``weight``.  Only the ``disable_density_normals=True`` path
-(both Waymo presets) is ported; the options off that path raise.
+``lin_second_stage_0``, ``normal_layer``, ``lin_glo_0``, ...), so
+``convert.params_from_jax`` is a rename of ``kernel`` to ``weight``.
+
+Every option of the JAX field is here: density normals (the gradient of the
+raw density w.r.t. the sample means, taken with ``torch.autograd.grad``;
+in training with ``create_graph``, so that the normals' losses reach the
+tables through the encoder's differentiable backward), predicted normals,
+the GLO layers, scale featurization, bf16 field matmuls
+(``compute_dtype``) and the training forward's density and bottleneck
+noise, drawn from the caller's ``torch.Generator`` or passed in.
 """
 
 from __future__ import annotations
@@ -26,12 +33,23 @@ class DenseCM(nn.Module):
     Init follows the JAX package: weight U(-b, b) with b = sqrt(3 * scale /
     fan_in) (scale 1/3 is torch.nn.Linear's default, 2 is kaiming-uniform),
     bias zero or U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with ``torch_bias``.
+
+    ``compute_dtype='bfloat16'`` is the JAX package's bf16 matmul: weight
+    and input rounded to bf16, products summed in f32 and an f32 output
+    (bias added in f32); in the backward each cast rounds its cotangent to
+    bf16, as JAX's does.  The product of the bf16-rounded values is taken in
+    f32 (each product of two bf16 values is exact in f32), the same on every
+    device; a bf16 GEMM with a bf16 output would be another function.
     """
 
     def __init__(self, in_features: int, out_features: int,
                  generator: torch.Generator, init_scale: float = 1 / 3,
-                 torch_bias: bool = False):
+                 torch_bias: bool = False, compute_dtype=None):
         super().__init__()
+        if compute_dtype not in (None, "bfloat16"):
+            raise ValueError(f"compute_dtype must be None or 'bfloat16', got "
+                             f"{compute_dtype!r}")
+        self.compute_dtype = compute_dtype
         bound = math.sqrt(3 * init_scale / in_features)
         self.weight = nn.Parameter(torch.empty(out_features, in_features)
                                    .uniform_(-bound, bound,
@@ -43,9 +61,25 @@ class DenseCM(nn.Module):
         self.bias = nn.Parameter(bias)
 
     def forward(self, x):
-        y = torch.matmul(self.weight, x.reshape(x.shape[0], -1))
+        weight = self.weight
+        if self.compute_dtype is not None:
+            weight = _bf16_round(weight)
+            x = _bf16_round(x)
+        y = torch.matmul(weight, x.reshape(x.shape[0], -1))
         y = y + self.bias[:, None]
         return y.reshape((self.weight.shape[0],) + x.shape[1:])
+
+
+def _bf16_round(x):
+    """x rounded to bf16 and widened back; the backward rounds the
+    cotangent to bf16 the same way."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _l2_normalize_cm(x, eps=1e-12):
+    """Normalize over the leading (channel) axis."""
+    return x / torch.sqrt(torch.clamp(torch.sum(x**2, dim=0, keepdim=True),
+                                      min=eps))
 
 
 def pos_enc_width(deg: int) -> int:
@@ -59,15 +93,8 @@ class ZipMLP(nn.Module):
     def __init__(self, config: MLPConfig, generator: torch.Generator):
         super().__init__()
         cfg = config
-        if not cfg.disable_density_normals or cfg.enable_pred_normals:
-            raise NotImplementedError("density/predicted normals are not "
-                                      "ported yet")
-        if cfg.num_glo_features > 0 or cfg.scale_featurization:
-            raise NotImplementedError("GLO and scale featurization are not "
-                                      "ported yet")
-        if cfg.compute_dtype is not None:
-            raise NotImplementedError("bf16 field matmuls are not ported yet")
         self.config = cfg
+        cdt = cfg.compute_dtype
         self.grid_spec = hashgrid.HashGridSpec(
             input_dim=3,
             num_levels=cfg.grid_num_levels,
@@ -79,30 +106,52 @@ class ZipMLP(nn.Module):
         )
         self.table = nn.Parameter(hashgrid.init_table(self.grid_spec,
                                                       generator))
-        self.density_hidden = DenseCM(self.grid_spec.output_dim, 64,
-                                      generator)
+        feat_dim = self.grid_spec.output_dim
+        if cfg.scale_featurization:
+            feat_dim += self.grid_spec.num_levels
+        self.density_hidden = DenseCM(feat_dim, 64, generator,
+                                      compute_dtype=cdt)
         out_width = 1 if cfg.disable_rgb else cfg.bottleneck_width
-        self.density_out = DenseCM(64, out_width, generator)
+        self.density_out = DenseCM(64, out_width, generator,
+                                   compute_dtype=cdt)
+        if cfg.enable_pred_normals:
+            self.normal_layer = DenseCM(out_width, 3, generator)
         if not cfg.disable_rgb:
+            if cfg.num_glo_features > 0:
+                width = cfg.num_glo_features
+                for i in range(cfg.net_depth_glo):
+                    last = i == cfg.net_depth_glo - 1
+                    out = cfg.bottleneck_width * 2 if last else \
+                        cfg.net_width_glo
+                    self.add_module(f"lin_glo_{i}",
+                                    DenseCM(width, out, generator))
+                    width = out
             inputs = cfg.bottleneck_width + pos_enc_width(cfg.deg_view)
             width = inputs
             for i in range(cfg.net_depth_viewdirs):
                 self.add_module(f"lin_second_stage_{i}", DenseCM(
-                    width, cfg.net_width_viewdirs, generator, init_scale=2.0))
+                    width, cfg.net_width_viewdirs, generator, init_scale=2.0,
+                    compute_dtype=cdt))
                 width = cfg.net_width_viewdirs
                 if i == cfg.skip_layer_dir:
                     width += inputs
-            self.rgb_layer = DenseCM(width, cfg.num_rgb_channels, generator)
+            self.rgb_layer = DenseCM(width, cfg.num_rgb_channels, generator,
+                                     compute_dtype=cdt)
 
-    def encode_features(self, means, stds):
+    def encode_features(self, means, stds, inner_grad_first=False):
         """Warp, hash-encode, erf-downweight and hex-average (channel-major).
 
         Args:
           means: [3, 6, R, S] multisample means (6 hex points).
           stds: [6, R, S] multisample stds.
+          inner_grad_first: the first backward through the encoder is the
+            density normals' gradient w.r.t. the means
+            (``hashgrid.encode_hex_cm``).
 
         Returns:
-          features [F, M] (M = R*S) and the contracted means [3, R, S].
+          features [F, M] (M = R*S; with scale featurization the L
+          featurized erf weights follow the L*C grid features) and the
+          contracted means [3, R, S].
         """
         cfg = self.config
         _, _, r, s = means.shape
@@ -116,57 +165,150 @@ class ZipMLP(nn.Module):
         x01 = (means.reshape(3, 6, m) + 1.0) / 2.0
         if cfg.hex_single_query:
             x01 = x01.mean(dim=1, keepdim=True)  # [3, 1, M]
-        feats, _ = hashgrid.encode_hex_cm(
+        feats, wmeans = hashgrid.encode_hex_cm(
             x01, stds.reshape(6, m), self.table, self.grid_spec,
             gather_bf16=cfg.grid_bf16_gather,
             bwd_dense_sample=cfg.grid_bwd_dense_sample,
-            bwd_value_dtype=cfg.grid_bwd_value_dtype)
+            bwd_value_dtype=cfg.grid_bwd_value_dtype,
+            inner_grad_first=inner_grad_first)
+        if cfg.scale_featurization:
+            vl2mean = hashgrid.level_sq_means(self.table.detach(),
+                                              self.grid_spec)
+            featurized_w = ((2 * wmeans - 1)
+                            * torch.sqrt(cfg.grid_init_std**2
+                                         + vl2mean)[:, None])
+            feats = torch.cat([feats, featurized_w], dim=0)
         return feats, means.mean(dim=1)
 
-    def predict_density(self, means, stds):
+    def predict_density(self, means, stds, density_noise=None,
+                        inner_grad_first=False):
         """Features -> raw density and bottleneck.
 
         Returns raw_density [R, S] (before ``density_bias`` and the
-        softplus), the bottleneck x [W, M] and the contracted means
+        softplus, plus ``density_noise`` x `density_noise` [R, S] when
+        given), the bottleneck x [W, M] and the contracted means
         [3, R, S]."""
         _, _, r, s = means.shape
-        feats, means_contract = self.encode_features(means, stds)
+        feats, means_contract = self.encode_features(means, stds,
+                                                     inner_grad_first)
         x = self.density_out(torch.relu(self.density_hidden(feats)))
-        return x[0].reshape(r, s), x, means_contract
+        raw_density = x[0].reshape(r, s)
+        if density_noise is not None:
+            raw_density = raw_density + self.config.density_noise * \
+                density_noise
+        return raw_density, x, means_contract
 
-    def forward(self, means, stds, viewdirs=None, train=False):
+    def _density_and_normals(self, means, stds, density_noise):
+        """predict_density and the density normals -normalize(d raw_density
+        / d means), averaged over the hex points: [3, R, S].
+
+        One forward; the gradient w.r.t. the means (a leaf copy where they
+        carry no gradient of their own) comes from ``torch.autograd.grad``,
+        the encoder's first backward (``inner_grad_first``), which computes
+        the corner weights' gradient alone.  In grad mode the
+        gradient keeps its graph (``create_graph``), for the normals'
+        losses; under no_grad (renders) it is taken under a local
+        ``enable_grad`` and everything returned is detached.  Where the
+        contraction stops gradients (``contract_grads`` off), the density
+        does not depend on the means and the normals are zero, as in the
+        JAX package.
+        """
+        train = torch.is_grad_enabled()
+        with torch.enable_grad():
+            mn = means if train and means.requires_grad else \
+                means.detach().requires_grad_()
+            raw_density, x, means_contract = self.predict_density(
+                mn, stds, density_noise, inner_grad_first=True)
+            grad, = torch.autograd.grad(raw_density.sum(), mn,
+                                        create_graph=train,
+                                        allow_unused=True)
+        if grad is None:
+            grad = torch.zeros_like(means)
+        normals = -_l2_normalize_cm(grad.mean(dim=1))
+        if not train:
+            raw_density, x, means_contract, normals = (
+                t.detach() for t in (raw_density, x, means_contract,
+                                     normals))
+        return raw_density, x, means_contract, normals
+
+    def forward(self, means, stds, viewdirs=None, glo_vec=None,
+                generator=None, noise=None):
         """Evaluate the field.
 
         Args:
           means: [3, 6, R, S] multisample Gaussian means (channel-major).
           stds: [6, R, S] multisample stds.
           viewdirs: [R, 3] per-ray view directions.
-          train: training forward.  The density and bottleneck noise of the
-            JAX package's keyed training forward are not ported (0 in every
-            preset); asking for them raises.
+          glo_vec: optional [R, num_glo_features] appearance codes (the JAX
+            model never passes one).
+          generator: the keyed training forward's torch.Generator: the
+            density and bottleneck noise (where their scales are > 0) are
+            standard normals drawn from it, density first.
+          noise: instead of a generator, dict of the standard-normal draws
+            ``density`` [R, S] and ``bottleneck`` [W, M] (the tests pass
+            JAX's).
 
         Returns:
-          dict with density [R, S], rgb [3, R, S], coord [3, R, S] and
-          normals/normals_pred None.
+          dict with density [R, S], rgb [3, R, S], coord [3, R, S],
+          grad_pred and normals/normals_pred [3, R, S] or None.
         """
         cfg = self.config
-        if train and (cfg.density_noise > 0 or cfg.bottleneck_noise > 0):
-            raise NotImplementedError("density/bottleneck noise is not "
-                                      "ported yet")
         _, _, r, s = means.shape
         m = r * s
-        raw_density, x, means_contract = self.predict_density(means, stds)
+        if generator is not None and noise is not None:
+            raise ValueError("pass at most one of generator and noise")
+        noise = dict(noise or {})
+        if generator is not None:
+            dev = means.device
+            if cfg.density_noise > 0:
+                noise["density"] = torch.randn((r, s), generator=generator,
+                                               device=dev)
+            if cfg.bottleneck_noise > 0 and not cfg.disable_rgb:
+                noise["bottleneck"] = torch.randn(
+                    (cfg.bottleneck_width, m), generator=generator,
+                    device=dev)
+        density_noise = noise.get("density") if cfg.density_noise > 0 \
+            else None
+
+        if cfg.disable_density_normals:
+            raw_density, x, means_contract = self.predict_density(
+                means, stds, density_noise)
+            normals = None
+        else:
+            raw_density, x, means_contract, normals = \
+                self._density_and_normals(means, stds, density_noise)
+
+        if cfg.enable_pred_normals:
+            grad_pred = self.normal_layer(x).reshape(3, r, s)
+            normals_pred = -_l2_normalize_cm(grad_pred)
+        else:
+            grad_pred = normals_pred = None
+
         density = nn.functional.softplus(raw_density + cfg.density_bias)
 
         if cfg.disable_rgb:
             rgb = torch.zeros((3, r, s), dtype=density.dtype,
                               device=density.device)
         else:
+            bottleneck = x  # [W, M]
+            if cfg.bottleneck_noise > 0 and "bottleneck" in noise:
+                bottleneck = bottleneck + cfg.bottleneck_noise * \
+                    noise["bottleneck"]
+            if glo_vec is not None and cfg.num_glo_features > 0:
+                g = glo_vec.T  # [G, R]
+                for i in range(cfg.net_depth_glo):
+                    g = getattr(self, f"lin_glo_{i}")(g)
+                    if i != cfg.net_depth_glo - 1:
+                        g = torch.relu(g)
+                scale, shift = torch.chunk(g, 2, dim=0)  # [W, R] each
+                b3 = bottleneck.reshape(-1, r, s)
+                b3 = b3 * torch.exp(scale)[:, :, None] + shift[:, :, None]
+                bottleneck = b3.reshape(-1, m)
             # View direction encoding, per ray then broadcast over samples.
             dir_enc = coord.pos_enc(viewdirs, min_deg=0,
                                     max_deg=cfg.deg_view)  # [R, D]
             dir_enc_cm = dir_enc.T[:, :, None].expand(-1, r, s).reshape(-1, m)
-            h = torch.cat([x, dir_enc_cm], dim=0)
+            h = torch.cat([bottleneck, dir_enc_cm], dim=0)
             inputs = h
             for i in range(cfg.net_depth_viewdirs):
                 h = torch.relu(getattr(self, f"lin_second_stage_{i}")(h))
@@ -178,4 +320,5 @@ class ZipMLP(nn.Module):
             rgb = rgb.reshape(3, r, s)
 
         return dict(coord=means_contract, density=density, rgb=rgb,
-                    normals=None, normals_pred=None)
+                    grad_pred=grad_pred, normals=normals,
+                    normals_pred=normals_pred)

@@ -3,8 +3,8 @@
 Zip-NeRF proposal hierarchy + sky NeRF + per-view affine color correction.
 The forward is deterministic (the JAX ``__call__`` with ``key=None``) unless
 a ``torch.Generator`` is given, from which it draws what the JAX keyed
-forward draws: the per-level sampling jitter and the hex pattern's flip,
-rotation and basis vector.  Submodules carry the JAX parameter tree's names
+forward draws: the per-level sampling jitter, the hex pattern's flip,
+rotation and basis vector, the fields' noise and a random background.  Submodules carry the JAX parameter tree's names
 (``nerf_mlp``, ``prop_mlp_0``, ``skynerf``, ``cam_refine``,
 ``brightness_corr``).
 
@@ -69,7 +69,7 @@ class UCNeRFModel(nn.Module):
                 net_width=mcfg.brightness_net_width)
 
     def forward(self, batch, train_frac, rand_vec=None, compute_extras=False,
-                eval_camidx=None, train=False, generator=None):
+                eval_camidx=None, train=False, generator=None, bg_draw=None):
         """Render a flat ray batch.
 
         Args:
@@ -85,7 +85,14 @@ class UCNeRFModel(nn.Module):
           train: training forward (adds ``loss_hash_decay`` to each level of
             the ray history).
           generator: optional torch.Generator on the batch's device; the
-            random draws of the JAX keyed forward come from it.
+            random draws of the JAX keyed forward come from it: first, with
+            a random ``bg_intensity_range``, the background colour; then per
+            level the sampling jitter, the hex flip and rotation, the hex
+            basis and the field's density and bottleneck noise (where their
+            scales are > 0).
+          bg_draw: optional U[0, 1) draws [N, 3] for a random
+            ``bg_intensity_range`` in the generator's place (the tests pass
+            JAX's).
 
         Returns:
           (renderings, ray_history): one dict per sampling level each.
@@ -96,10 +103,16 @@ class UCNeRFModel(nn.Module):
         n, dev = near.shape[0], near.device
         if (generator is None) == (rand_vec is None):
             raise ValueError("pass exactly one of rand_vec and generator")
+        # The background colour: constant, the range's mean without a
+        # generator, or one [N, 3] draw shared by every level (the JAX
+        # keyed forward draws it from one key, keys[-1]).
         lo_bg, hi_bg = mcfg.bg_intensity_range
-        if generator is not None and lo_bg != hi_bg:
-            raise NotImplementedError("random background colours are not "
-                                      "ported yet")
+        bg_rgbs = lo_bg if lo_bg == hi_bg else (lo_bg + hi_bg) / 2
+        if bg_draw is not None:
+            bg_rgbs = lo_bg + (hi_bg - lo_bg) * bg_draw
+        elif generator is not None and lo_bg != hi_bg:
+            bg_rgbs = lo_bg + (hi_bg - lo_bg) * torch.rand(
+                (n, 3), generator=generator, device=dev)
 
         if cfg.optimize_cameras and "phys_cam_idx" in batch:
             # Per-camera se(3) refinement of the rays (models/cam_refine.py),
@@ -180,7 +193,7 @@ class UCNeRFModel(nn.Module):
             ray_results = mlp(
                 means, stds,
                 viewdirs=batch["viewdirs"] if mcfg.use_viewdirs else None,
-                train=train)
+                generator=generator)
             del means, stds
 
             if cfg.brightness_correction:
@@ -193,8 +206,6 @@ class UCNeRFModel(nn.Module):
                 ray_results["density"], tdist, batch["directions"],
                 opaque_background=mcfg.opaque_background)[0]
 
-            lo_bg, hi_bg = mcfg.bg_intensity_range
-            bg_rgbs = lo_bg if lo_bg == hi_bg else (lo_bg + hi_bg) / 2
             level_render = rendering.volumetric_rendering_cm(
                 ray_results["rgb"], weights, tdist, bg_rgbs, far,
                 compute_extras,

@@ -1,9 +1,10 @@
 """Coordinate warps and encodings (port of ``ucnerf_tpu/ops/coord.py``).
 
-The render path's half: ray-distance warps, the channel-major Gaussian
-contraction, and the sinusoidal positional encoding; and the point
-contraction and its inverse (``contract``, ``inv_contract``), which mesh
-extraction uses on grid points and vertices.
+Ray-distance warps, the Gaussian contraction in the channel-major layout
+of the model and in the reference's row-major one (``contract_mean_std``,
+``track_linearize``), the sinusoidal and integrated positional encodings,
+and the point contraction and its inverse (``contract``, ``inv_contract``),
+which mesh extraction uses on grid points and vertices.
 """
 
 from __future__ import annotations
@@ -33,20 +34,39 @@ def inv_contract(z):
         z / torch.clamp(2 * torch.sqrt(z_mag_sq) - z_mag_sq, min=EPS))
 
 
+def _cbrt(x):
+    """Cube root of a positive tensor (torch has no cbrt; ``pow(., 1/3)``
+    is a few ulp off it)."""
+    return torch.pow(x, 1.0 / 3.0)
+
+
+def contract_mean_std(x, std):
+    """Row-major ``contract_mean_std_cm``: mean x [..., 3], std [...]."""
+    z, std = contract_mean_std_cm(torch.movedim(x, -1, 0), std)
+    return torch.movedim(z, 0, -1), std
+
+
+def track_linearize(fn, mean, std, stop_grads=True):
+    """Row-major ``track_linearize_cm``: mean [..., 3], std [...]."""
+    if fn != "contract":
+        raise NotImplementedError(fn)
+    mean, std = contract_mean_std(mean, std)
+    if stop_grads:
+        return mean.detach(), std.detach()
+    return mean, std
+
+
 def contract_mean_std_cm(x, std):
     """Contract Gaussians (mean x [3, ...], isotropic std [...]) into the
-    radius-2 ball (mip-NeRF 360), scaling std by det(J)^(1/3).
-
-    torch has no cbrt; its argument is clamped positive here, so
-    ``pow(., 1/3)`` is exact enough (a few ulp)."""
+    radius-2 ball (mip-NeRF 360), scaling std by det(J)^(1/3)."""
     x_mag_sq = torch.clamp(x[0] ** 2 + x[1] ** 2 + x[2] ** 2, min=EPS)
     x_mag_sqrt = torch.sqrt(x_mag_sq)
     mask = x_mag_sq <= 1
     scale = torch.where(mask, torch.ones_like(x_mag_sq),
                         (2 * x_mag_sqrt - 1) / x_mag_sq)
     z = x * scale[None]
-    cbrt = torch.pow(torch.clamp(2 * x_mag_sqrt - 1, min=EPS), 1.0 / 3.0)
-    det_13 = (cbrt / x_mag_sqrt) ** 2
+    det_13 = (_cbrt(torch.clamp(2 * x_mag_sqrt - 1, min=EPS))
+              / x_mag_sqrt) ** 2
     std = torch.where(mask, std, det_13 * std)
     return z, std
 
@@ -117,6 +137,23 @@ def construct_ray_warps(fn, t_near, t_far, lam=None):
     t_to_s = lambda t: (fn_fwd(t) - s_near) / (s_far - s_near)
     s_to_t = lambda s: fn_inv(s * s_far + (1 - s) * s_near)
     return t_to_s, s_to_t
+
+
+def expected_sin(mean, var):
+    """Mean of sin(x) for x ~ N(mean, var)."""
+    return torch.exp(-0.5 * var) * mathx.safe_sin(mean)
+
+
+def integrated_pos_enc(mean, var, min_deg, max_deg):
+    """IPE: sinusoids of Gaussian coordinates mean, var [..., D]."""
+    scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=mean.dtype,
+                                 device=mean.device)
+    shape = mean.shape[:-1] + (-1,)
+    scaled_mean = (mean[..., None, :] * scales[:, None]).reshape(shape)
+    scaled_var = (var[..., None, :] * scales[:, None] ** 2).reshape(shape)
+    return expected_sin(
+        torch.cat([scaled_mean, scaled_mean + 0.5 * np.pi], dim=-1),
+        torch.cat([scaled_var] * 2, dim=-1))
 
 
 def pos_enc(x, min_deg, max_deg, append_identity=True):

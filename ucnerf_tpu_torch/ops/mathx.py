@@ -1,6 +1,7 @@
 """Numerically-safe math helpers (port of ``ucnerf_tpu/ops/mathx.py``).
 
-``EPS``, the masked-extrema formulations of sorted (linear and quadratic)
+``EPS``, the reference's cheap ``fast_erf``, ``safe_sin`` / ``safe_cos``,
+the masked-extrema formulations of sorted (linear and quadratic)
 interpolation, and the log-lerp learning-rate schedule.  The JAX package's
 ``take_along_last`` (a one-hot MXU contraction, a TPU workaround for slow
 trailing-axis gathers) has no counterpart here: the port calls
@@ -16,6 +17,26 @@ import numpy as np
 import torch
 
 EPS = float(np.finfo(np.float32).eps)
+
+
+def fast_erf(x):
+    """Cheap erf approximation: sign(x) * sqrt(1 - exp(-4/pi x^2))."""
+    return torch.sign(x) * torch.sqrt(1.0 - torch.exp(-(4.0 / math.pi)
+                                                      * x**2))
+
+
+def safe_trig_helper(x, fn, t=100 * math.pi):
+    """Mod `x` into a safe range before applying a trig function (the
+    remainder of ``jnp.mod``: the sign of the divisor)."""
+    return fn(torch.where(torch.abs(x) < t, x, torch.remainder(x, t)))
+
+
+def safe_cos(x):
+    return safe_trig_helper(x, torch.cos)
+
+
+def safe_sin(x):
+    return safe_trig_helper(x, torch.sin)
 
 
 def linspace(start: float, stop: float, num: int, device=None):

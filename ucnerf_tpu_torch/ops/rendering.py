@@ -1,8 +1,12 @@
 """Volume rendering core (port of ``ucnerf_tpu/ops/rendering.py``).
 
-Zip-NeRF's hexagonal 6-point multisampling in the channel-major layout,
-alpha-compositing weights and volumetric rendering with the reference's
-depth clamp (depth = 300 where acc < 0.6).
+Zip-NeRF's hexagonal 6-point multisampling, alpha-compositing weights and
+volumetric rendering with the reference's depth clamp (depth = 300 where
+acc < 0.6), in the model's channel-major layout (``cast_rays_cm``,
+``volumetric_rendering_cm``) and in the reference's row-major one
+(``cast_rays``, ``volumetric_rendering``), with the mip-NeRF frustum and
+cylinder Gaussians (``lift_gaussian``, ``conical_frustum_to_gaussian``,
+``cylinder_to_gaussian``).
 
 The hex pattern needs one random vector per ray for the camera-plane basis.
 With ``key=None`` the JAX package draws it from
@@ -29,6 +33,61 @@ _HEX_PATTERN = (0.0, 2.0, 4.0, 3.0, 5.0, 1.0)
 def _normalize(v):
     return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
                            min=1e-12)
+
+
+def lift_gaussian(d, t_mean, t_var, r_var, diag):
+    """Lift a Gaussian defined along a ray to 3D coordinates."""
+    mean = d[..., None, :] * t_mean[..., None]
+    d_mag_sq = torch.clamp(torch.sum(d**2, dim=-1, keepdim=True), min=EPS)
+    if diag:
+        d_outer_diag = d**2
+        null_outer_diag = 1 - d_outer_diag / d_mag_sq
+        t_cov_diag = t_var[..., None] * d_outer_diag[..., None, :]
+        xy_cov_diag = r_var[..., None] * null_outer_diag[..., None, :]
+        return mean, t_cov_diag + xy_cov_diag
+    d_outer = d[..., :, None] * d[..., None, :]
+    eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
+    null_outer = eye - d[..., :, None] * (d / d_mag_sq)[..., None, :]
+    t_cov = t_var[..., None, None] * d_outer[..., None, :, :]
+    xy_cov = r_var[..., None, None] * null_outer[..., None, :, :]
+    return mean, t_cov + xy_cov
+
+
+def conical_frustum_to_gaussian(d, t0, t1, base_radius, diag, stable=True):
+    """Approximate a conical frustum as a Gaussian (mip-NeRF Eq. 7)."""
+    if stable:
+        mu = (t0 + t1) / 2
+        hw = (t1 - t0) / 2
+        denom = torch.clamp(3 * mu**2 + hw**2, min=EPS)
+        t_mean = mu + (2 * mu * hw**2) / denom
+        t_var = ((hw**2) / 3
+                 - (4 / 15) * hw**4 * (12 * mu**2 - hw**2) / denom**2)
+        r_var = (mu**2) / 4 + (5 / 12) * hw**2 - (4 / 15) * (hw**4) / denom
+    else:
+        t_mean = (3 * (t1**4 - t0**4)) / (4 * (t1**3 - t0**3))
+        r_var = 3 / 20 * (t1**5 - t0**5) / (t1**3 - t0**3)
+        t_mosq = 3 / 5 * (t1**5 - t0**5) / (t1**3 - t0**3)
+        t_var = t_mosq - t_mean**2
+    r_var = r_var * base_radius**2
+    return lift_gaussian(d, t_mean, t_var, r_var, diag)
+
+
+def cylinder_to_gaussian(d, t0, t1, radius, diag):
+    """Approximate a cylinder as a Gaussian."""
+    t_mean = (t0 + t1) / 2
+    r_var = radius**2 / 4
+    t_var = (t1 - t0) ** 2 / 12
+    return lift_gaussian(d, t_mean, t_var, r_var, diag)
+
+
+def cast_rays(tdist, origins, directions, cam_dirs, radii, rand_vec,
+              std_scale=0.5, flip=None, rot=None):
+    """Row-major ``cast_rays_cm``: the same samples in the reference's
+    layout, means [R, S, 6, 3], stds [R, S, 6], ts [R, S, 6]."""
+    means, stds, t = cast_rays_cm(tdist, origins, directions, cam_dirs, radii,
+                                  rand_vec, std_scale, flip, rot)
+    return (means.permute(2, 3, 1, 0), stds.permute(1, 2, 0),
+            t.permute(1, 2, 0))
 
 
 def cast_rays_cm(tdist, origins, directions, cam_dirs, radii, rand_vec,
@@ -157,3 +216,14 @@ def volumetric_rendering_cm(rgbs_cm, weights, tdist, bg_rgbs, t_far,
             s = "median" if p == 50 else "percentile_" + str(p)
             rendering["distance_" + s] = distance_percentiles[..., i]
     return rendering
+
+
+def volumetric_rendering(rgbs, weights, tdist, bg_rgbs, t_far, compute_extras,
+                         extras=None):
+    """Row-major ``volumetric_rendering_cm``: rgbs [R, S, 3], extras
+    [R, S, 3]; the same outputs."""
+    cm = lambda v: None if v is None else v.permute(2, 0, 1)
+    if extras is not None:
+        extras = {k: cm(v) for k, v in extras.items()}
+    return volumetric_rendering_cm(cm(rgbs), weights, tdist, bg_rgbs, t_far,
+                                   compute_extras, extras)

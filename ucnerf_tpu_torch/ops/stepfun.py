@@ -7,7 +7,11 @@ training (``lossfun_outer``, ``lossfun_distortion``, ``blur_stepfun``).
 Every lookup keeps the JAX package's masked-extrema form over a dense
 [..., N, M] comparison, so ties (``v >= a``) and the clamping of
 out-of-range queries agree exactly.  ``take_along_last`` becomes
-``torch.gather``.
+``torch.gather``, except in ``inner_outer``, whose gather carries a
+gradient in training (the interlevel loss): there ``take_along_last``'s
+backward sums a one-hot product over the few histogram bins, in a fixed
+order on every device, where ``torch.gather``'s backward adds with float
+atomics on the card.
 """
 
 from __future__ import annotations
@@ -39,13 +43,42 @@ def query(tq, t, y, outside_value=0.0):
                        yq)
 
 
+class _TakeAlongLast(torch.autograd.Function):
+    """``torch.gather(y, -1, idx)`` for a short last axis of y, with a
+    repeatable backward: the cotangent summed through the one-hot
+    ``idx == n`` over the gathered axis (the JAX ``take_along_last``'s
+    transpose), an elementwise product and a reduction with no atomics."""
+
+    @staticmethod
+    def forward(ctx, y, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = y.shape[-1]
+        return torch.gather(y, -1, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        n = torch.arange(ctx.n, device=idx.device)
+        onehot = idx[..., :, None] == n  # [..., M, N]
+        return torch.where(onehot, g[..., :, None],
+                           torch.zeros((), dtype=g.dtype,
+                                       device=g.device)).sum(dim=-2), None
+
+
+def take_along_last(y, idx):
+    """y [..., N] at int idx [..., M] along the last axis, with the
+    repeatable backward of ``_TakeAlongLast``."""
+    return _TakeAlongLast.apply(y, idx.long())
+
+
 def inner_outer(t0, t1, y1):
     """Construct inner and outer measures on (t1, y1) for intervals t0."""
     cy1 = torch.cat([torch.zeros_like(y1[..., :1]),
                      torch.cumsum(y1, dim=-1)], dim=-1)
     idx_lo, idx_hi = searchsorted(t1, t0)
-    cy1_lo = torch.gather(cy1, -1, idx_lo.long())
-    cy1_hi = torch.gather(cy1, -1, idx_hi.long())
+    cy1_lo = take_along_last(cy1, idx_lo)
+    cy1_hi = take_along_last(cy1, idx_hi)
     y0_outer = cy1_hi[..., 1:] - cy1_lo[..., :-1]
     y0_inner = torch.where(idx_hi[..., :-1] <= idx_lo[..., 1:],
                            cy1_lo[..., 1:] - cy1_hi[..., :-1],

@@ -1,14 +1,14 @@
 """UC-NeRF training losses (port of ``ucnerf_tpu/train/losses.py``).
 
 Data (charb / mse / rawnerf), sky BCE, affine identity, interlevel,
-anti-interlevel (blurred), distortion, opacity and hash decay.  Each returns
-a scalar already multiplied by its config weight, so the total loss is a
-plain sum.  The orientation and predicted-normal losses need normals, which
-the port does not compute yet: a nonzero multiplier raises.
+anti-interlevel (blurred), distortion, opacity, the ref-NeRF orientation
+and predicted-normal losses, and hash decay.  Each returns a scalar already
+multiplied by its config weight, so the total loss is a plain sum.
 
 Layouts follow the port's model: renderings carry rgb [N, 3], acc [N],
 weights [N, S], affine_trans [N, 3, 4]; ray history levels carry sdist
-[N, S+1], weights [N, S] and loss_hash_decay (a scalar).
+[N, S+1], weights [N, S], normals and normals_pred [3, N, S] (or None) and
+loss_hash_decay (a scalar).
 """
 
 from __future__ import annotations
@@ -111,6 +111,42 @@ def distortion_loss(ray_history, config: Config):
         c, w).mean()
 
 
+def orientation_loss(batch, ray_history, config: Config, num_levels: int):
+    """ref-NeRF orientation regularizer: normals facing away from the
+    camera are penalized, weighted by the level's weights."""
+    total = 0.0
+    for i, ray_results in enumerate(ray_history):
+        w = ray_results["weights"]
+        n = ray_results[config.orientation_loss_target]  # [3, R, S]
+        if n is None:
+            raise ValueError("Normals cannot be None for orientation loss.")
+        v = -batch["viewdirs"]  # [R, 3]
+        n_dot_v = torch.einsum("crs,rc->rs", n, v)
+        loss = (w * torch.clamp(n_dot_v, min=0.0) ** 2).sum(dim=-1).mean()
+        mult = (config.orientation_coarse_loss_mult if i < num_levels - 1
+                else config.orientation_loss_mult)
+        total += mult * loss
+    return total
+
+
+def predicted_normal_loss(ray_history, config: Config, num_levels: int):
+    """ref-NeRF predicted-normal supervision: the predicted normals pulled
+    to the density normals, weighted by the level's weights."""
+    total = 0.0
+    for i, ray_results in enumerate(ray_history):
+        w = ray_results["weights"]
+        n = ray_results["normals"]  # [3, R, S]
+        n_pred = ray_results["normals_pred"]
+        if n is None or n_pred is None:
+            raise ValueError("Normals required for predicted-normal loss.")
+        loss = torch.mean(
+            (w * (1.0 - torch.sum(n * n_pred, dim=0))).sum(dim=-1))
+        mult = (config.predicted_normal_coarse_loss_mult
+                if i < num_levels - 1 else config.predicted_normal_loss_mult)
+        total += mult * loss
+    return total
+
+
 def hash_decay_loss(ray_history, config: Config):
     """L2 decay of the hash tables."""
     total = 0.0
@@ -131,11 +167,6 @@ def opacity_loss(renderings, config: Config):
 def compute_all_losses(batch, renderings, ray_history, config: Config):
     """The loss dict in the JAX package's order; returns (total, losses,
     stats)."""
-    if (config.orientation_coarse_loss_mult > 0
-            or config.orientation_loss_mult > 0
-            or config.predicted_normal_coarse_loss_mult > 0
-            or config.predicted_normal_loss_mult > 0):
-        raise NotImplementedError("the normals losses are not ported yet")
     losses: Dict[str, torch.Tensor] = {}
     data_loss, stats = compute_data_loss(batch, renderings, config)
     losses["data"] = data_loss
@@ -152,7 +183,15 @@ def compute_all_losses(batch, renderings, ray_history, config: Config):
         losses["distortion"] = distortion_loss(ray_history, config)
     if config.opacity_loss_mult > 0:
         losses["opacity"] = opacity_loss(renderings, config)
+    if (config.orientation_coarse_loss_mult > 0 or
+            config.orientation_loss_mult > 0):
+        losses["orientation"] = orientation_loss(batch, ray_history, config,
+                                                 num_levels)
     if config.hash_decay_mults > 0:
         losses["hash_decay"] = hash_decay_loss(ray_history, config)
+    if (config.predicted_normal_coarse_loss_mult > 0 or
+            config.predicted_normal_loss_mult > 0):
+        losses["predicted_normals"] = predicted_normal_loss(
+            ray_history, config, num_levels)
     total = sum(losses.values())
     return total, losses, stats
