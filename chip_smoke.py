@@ -54,6 +54,24 @@ Phases:
      same initial parameters, a fresh Adam state, the same batch and one
      generator seed; every parameter, every Adam moment and the losses
      bitwise equal;
+  8a. data-parallel phase (``parallel/mesh.py``), each rank a process of
+     its own (this script with ``--dp-worker``), every rank on the one card:
+     a group of one over NCCL, whose 2 keyed f32 steps must equal the same
+     steps without a group bitwise (the all-reduce timed by CUDA events);
+     two ranks over gloo, each on 7500 of the batch's 15000 rays, for each
+     backward: the launches per rank a step asserted (160 ``take_wsum_cm``,
+     20 fused K1 or fused K3, 20 K2, 40 run starts), every parameter and
+     Adam moment bitwise equal across the ranks after each step and across
+     two runs of 2 steps (sha256 of their bytes); one fixed-basis step's
+     losses and reduced gradients against one process on the 15000 rays
+     at the gradient check's tolerances; rays/s and peak memory per rank
+     (two ranks sharing one card: no measure of scaling); on a machine
+     with several cards, the same with a rank on each card over NCCL
+     (skipped, and said so, on one card); then
+     ``cli.train --multihost`` at two ranks on the CLI phase's scene (10
+     steps with a test render and a checkpoint, a resume to 12: one log,
+     one checkpoint set) and ``cli.eval`` of its checkpoint at two ranks
+     against one process (PSNR and SSIM of 2 views, view 0's 8-bit image);
   8b. camera-refinement phase: ``configs.waymo()`` with
      ``optimize_cameras`` and ``contract_origin_grads`` from the same
      initial weights and batch (each ray's view its physical camera), the
@@ -148,16 +166,19 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import types
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -203,6 +224,16 @@ K3_FUSED_SUMS = ("torch_sequence_ms", "formation_ms", "pack_ms", "planar_ms",
 # generator's seed.
 REPEAT_STEPS = 2
 REPEAT_SEED = 7
+# The data-parallel phase: keyed steps of each run, the entry points' steps
+# (first call, resumed call; cut from the CLI phase's 30 and 40), the views
+# its cli.eval renders, and how far those views' PSNR and SSIM at two ranks
+# may lie from one process's (relative): renders that agree within
+# RENDER_ATOL move a PSNR near 20 dB by up to ~4e-3 relative, and the two
+# differ in f32 rounding alone.
+DP_STEPS = 2
+DP_CLI_STEPS = (10, 12)
+DP_EVAL_VIEWS = 2
+DP_METRIC_RTOL = 1e-3
 # The camera-refinement phase: timed steps after its warm-up.
 CAM_STEPS = 3
 # K5 is held at the chunk counts the JAX package's record names: unchunked,
@@ -2624,6 +2655,22 @@ def serving_phase(torch, gather, scatter, hashgrid, configs, step, exp, k4):
     return res, paths
 
 
+def grad_atol_frac(modules, name):
+    """The atol, as a fraction of max|grad|, of gradient `name` in the
+    card-vs-CPU checks: GRAD_ATOL_FRAC, or table_atol_frac for the tables
+    and density_hidden.weight, whose values move with the sample
+    positions."""
+    field, _, leaf = name.partition(".")
+    if leaf in ("table", "density_hidden.weight"):
+        return table_atol_frac(modules[field].grid_spec)
+    if name == "cam_refine.se3_deltas":
+        # A sum of d loss / d position over the samples: each term is a
+        # table's difference across a cell of the finest grid, where a
+        # position moved by POS_ERR can fall into the next cell.
+        return table_atol_frac(modules["nerf_mlp"].grid_spec)
+    return GRAD_ATOL_FRAC
+
+
 def grad_check_phase(torch, losses_lib, model, cfg, batch):
     """One 64-ray microbatch, generator=None and a given rand_vec: the card
     (kernels) against a CPU copy of the model (plain versions)."""
@@ -2655,17 +2702,10 @@ def grad_check_phase(torch, losses_lib, model, cfg, batch):
         scale = float(want.abs().max())
         err = (got - want).abs()
         worst[k] = float(err.max()) / max(scale, 1e-30)
-        frac = GRAD_ATOL_FRAC
+        frac = grad_atol_frac(modules, k)
         field, _, leaf = k.partition(".")
-        if leaf in ("table", "density_hidden.weight"):
-            spec = modules[field].grid_spec
-            frac = table_atol_frac(spec)
-        elif k == "cam_refine.se3_deltas":
-            # A sum of d loss / d position over the samples: each term is a
-            # table's difference across a cell of the finest grid, where a
-            # position moved by POS_ERR can fall into the next cell.
-            frac = table_atol_frac(modules["nerf_mlp"].grid_spec)
         if leaf == "table":
+            spec = modules[field].grid_spec
             by_level = [float(err[:, lo:hi].max()) / scale for lo, hi in
                         zip(spec.offsets[:-1], spec.offsets[1:])]
             print(f"[grad] {k}: err/max|grad| by level "
@@ -3600,11 +3640,586 @@ def pose_phase(torch, gather, scatter):
         "pose": launches}
 
 
+def tensor_digest(tensors):
+    """sha256 of the tensors' bytes, in order: equal digests mean bitwise
+    equal tensors."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().data)
+    return h.hexdigest()
+
+
+def state_digest(model, optimizer):
+    """Digest of every parameter and every Adam moment (in parameter
+    order)."""
+    adam = optimizer.adam.state
+    return tensor_digest(
+        [p for p in model.parameters()]
+        + [adam[p][k] for p in model.parameters()
+           for k in ("exp_avg", "exp_avg_sq") if p in adam])
+
+
+def launch_ranks(cmd, world, folder, timeout):
+    """Run `cmd` as `world` ranks on this host through ``torchrun
+    --standalone``, its output in <folder>/torchrun.log.  Fails, with the end
+    of that log, if a rank exits non-zero (torchrun then stops the others)
+    or the launch outlasts `timeout` seconds (torchrun is then stopped, and
+    stops its ranks)."""
+    path = os.path.join(folder, "torchrun.log")
+    with open(path, "w") as log, subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}", "--no-python", *cmd],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT) as proc:
+        try:
+            rc = proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.terminate()  # torchrun stops its ranks on SIGTERM
+            rc = proc.wait()
+    if rc:
+        with open(path) as f:
+            check(False, f"{' '.join(cmd[:4])}... as {world} ranks exited "
+                  f"{rc}:\n{f.read()[-12000:]}")
+
+
+def dp_launch(folder, name, world, spec, timeout):
+    """chip_smoke.py --dp-worker as `world` ranks on spec (a dict, written
+    to <folder>/<name>/spec.json with the rank folder and a file
+    rendezvous); returns each rank's JSON result and the seconds taken."""
+    work = os.path.join(folder, name)
+    os.makedirs(work)
+    spec = dict(spec, out=work,
+                init="file://" + os.path.join(work, "rendezvous"))
+    path = os.path.join(work, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                  path], world, work, timeout)
+    secs = time.perf_counter() - t0
+    results = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, secs
+
+
+def dp_worker(spec_path):
+    """One rank of the data-parallel phase (``--dp-worker``): the mode in
+    the spec runs, and the rank's results go to <out>/rank<r>.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from ucnerf_tpu_torch.ops import gather, scatter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    if spec["mode"] == "cli":
+        res = dp_cli_rank(torch, gather, scatter, spec)
+    else:
+        res = dp_step_rank(torch, gather, scatter, spec)
+    res["rank"] = rank
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def dp_cli_rank(torch, gather, scatter, spec):
+    """An entry point in-process on this rank (it joins the group itself),
+    its launches counted from 0 just before it."""
+    import importlib
+    main = importlib.import_module(spec["module"]).main
+    reset_launches(gather, scatter)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    main(spec["argv"] + ["--dist-init-method", spec["init"]])
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "launches": read_launches(gather, scatter),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def dp_step_rank(torch, gather, scatter, spec):
+    """The train step on this rank's slice of the phase's batch, through the
+    group: in mode "nccl1" (a group of one over NCCL) two keyed f32 steps
+    through the group and two without one; in modes "gloo2" (two ranks on
+    card 0) and "cards" (a rank on each card, NCCL) one fixed-basis f32
+    step (its reduced gradients kept) and, for each backward, two runs of
+    DP_STEPS keyed steps, each step's state digested, timed and its
+    launches counted."""
+    from ucnerf_tpu_torch import configs
+    from ucnerf_tpu_torch.cli import train as cli_train
+    from ucnerf_tpu_torch.parallel import mesh
+    from ucnerf_tpu_torch.train import state as state_lib
+    from ucnerf_tpu_torch.train import step
+
+    # "cards": a rank on each card; otherwise every rank on card 0.
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                          if spec["mode"] == "cards" else 0)
+    backend = "gloo" if spec["mode"] == "gloo2" else "nccl"
+    group = mesh.initialize_multihost(backend, device, spec["init"])
+    rank, world = mesh.rank(group), mesh.world_size(group)
+    inputs = torch.load(spec["inputs"], map_location="cpu", weights_only=True)
+    n = inputs["batch"]["origins"].shape[0]
+    lo, hi = mesh.process_slice(n)
+    local = {k: v[lo:hi].to(device) for k, v in inputs["batch"].items()}
+    f32 = configs.waymo(lr_delay_steps=0)
+    cfgs = {"f32": f32, "bf16": with_bf16_backward(f32)}
+
+    # The all-reduce of each step, timed by CUDA events and the host clock.
+    reduces = []
+    all_reduce_grads = mesh.all_reduce_grads
+
+    def timed_reduce(params, group=None):
+        params = list(params)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        all_reduce_grads(params, group)
+        end.record()
+        end.synchronize()
+        reduces.append({"ms": start.elapsed_time(end),
+                        "host_ms": 1e3 * (time.perf_counter() - t0),
+                        "bytes": sum(p.numel() * p.element_size()
+                                     for p in params)})
+
+    mesh.all_reduce_grads = timed_reduce
+
+    models = {}
+
+    def fresh(label, g):
+        """The backward's model (built once) at the initial parameters,
+        with a fresh Adam state."""
+        cfg = cfgs[label]
+        if label not in models:
+            models[label] = step.init_model(cfg, seed=0, device=device)
+        model = models[label]
+        model.load_state_dict(inputs["initial"], strict=True)
+        model.zero_grad(set_to_none=True)
+        state = state_lib.create_train_state(cfg, model)
+        return model, state, step.make_train_step(model, cfg, g)
+
+    def keyed_run(label, g):
+        model, state, train_step = fresh(label, g)
+        gen = torch.Generator(device=device)
+        out = {"digests": [], "losses": [], "seconds": [], "launches": []}
+        for i in range(1, DP_STEPS + 1):
+            gen.manual_seed(cli_train._step_seed(5678, i, rank))
+            reset_launches(gather, scatter)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, stats = train_step(state, local, 0.5, generator=gen)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["launches"].append(read_launches(gather, scatter))
+            out["losses"].append(float(stats["loss"]))
+            out["digests"].append(state_digest(model, state.optimizer))
+        return out
+
+    res = {"world": world, "backend": torch.distributed.get_backend(group),
+           "rays": hi - lo}
+    if spec["mode"] == "nccl1":
+        res["group"] = keyed_run("f32", group)
+        res["none"] = keyed_run("f32", None)
+        res["all_reduce"] = reduces
+        mesh.shutdown()
+        return res
+
+    # One fixed-basis step: the reduced gradients, read where the optimizer
+    # starts (after the all-reduce, before the clean and the clips).
+    model, state, train_step = fresh("f32", group)
+    reduced = {}
+    update = state.optimizer.update
+
+    def keep_then_update():
+        reduced.update({k: p.grad.detach().cpu()
+                        for k, p in model.named_parameters()})
+        update()
+
+    state.optimizer.update = keep_then_update
+    _, stats = train_step(state, local, 0.5,
+                          rand_vec=inputs["rand_vec"][lo:hi].to(device))
+    res["fixed"] = {"loss": float(stats["loss"]),
+                    "losses": {k: float(v)
+                               for k, v in stats["losses"].items()},
+                    "grad_digest": tensor_digest(reduced.values())}
+    if rank == 0:
+        torch.save(reduced, os.path.join(spec["out"], "reduced_grads.pt"))
+    del model, state, train_step, reduced
+
+    torch.cuda.reset_peak_memory_stats()
+    for label in cfgs:
+        res[label] = [keyed_run(label, group) for _ in range(2)]
+        torch.cuda.empty_cache()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["all_reduce"] = reduces
+    mesh.shutdown()
+    return res
+
+
+def dp_phase(torch, gather, scatter, configs, step, state_lib, cfg, initial,
+             batch):
+    """Data parallelism on the one card (every rank on cuda:0), each rank a
+    process of its own (``--dp-worker``):
+    1. a group of one over NCCL: DP_STEPS keyed f32 steps through the group
+       bitwise equal to the same steps without one (every parameter and
+       Adam moment), the all-reduce timed;
+    2. two ranks over gloo, each on its 7500 of the batch's 15000 rays:
+       per-rank launches a step, the two ranks bitwise equal after every
+       step, two runs of DP_STEPS steps bitwise equal, for each backward;
+       one fixed-basis step's loss and reduced gradients against one
+       process on all 15000 rays, at the card-vs-CPU check's tolerances;
+    2b. where the machine has several cards, a rank on each card over
+       NCCL, with the checks of 2 and the rate of one card beside it;
+    3. the entry points at two ranks over gloo on the CLI phase's scene:
+       cli.train --multihost (DP_CLI_STEPS: a test render, a checkpoint,
+       a resume) and cli.eval of its checkpoint against a one-process
+       cli.eval (view PSNRs and images).
+    Returns (results, launch paths of rank 0)."""
+    from ucnerf_tpu_torch.cli import eval as cli_eval
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ucnerf_dp_")
+    res, paths = {}, {}
+    try:
+        rand_vec = torch.from_numpy(np.random.default_rng(11).normal(
+            size=(batch["origins"].shape[0], 3)).astype(np.float32))
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save({"initial": initial, "rand_vec": rand_vec,
+                    "batch": {k: v.cpu() for k, v in batch.items()}}, inputs)
+
+        # 1. A group of one over NCCL.
+        (one,), secs = dp_launch(tmp, "nccl1", 1, {"mode": "nccl1",
+                                                   "inputs": inputs}, 300)
+        differ = [i + 1 for i, (a, b) in enumerate(zip(
+            one["group"]["digests"], one["none"]["digests"])) if a != b]
+        check(one["backend"] == "nccl" and not differ
+              and one["group"]["losses"] == one["none"]["losses"],
+              f"dp nccl world 1: steps {differ} differ from the steps "
+              f"without a group; losses {one['group']['losses']} vs "
+              f"{one['none']['losses']}")
+        red = one["all_reduce"]
+        res["nccl_world1"] = {"seconds": secs, "all_reduce": red,
+                              "losses": one["group"]["losses"],
+                              "bitwise_no_group": True}
+        print(f"[dp nccl] world 1 through NCCL: {DP_STEPS} f32 steps of "
+              f"{one['rays']} rays bitwise equal to the same steps without a "
+              f"group (every parameter and Adam moment); all-reduce of "
+              f"{red[0]['bytes']} B a step: "
+              f"{[round(r['ms'], 3) for r in red]} ms by CUDA events, "
+              f"{[round(r['host_ms'], 3) for r in red]} ms host "
+              f"({secs:.1f} s with the process start)", flush=True)
+
+        # 2. Two ranks over gloo on one card.
+        ranks, secs = dp_launch(tmp, "gloo2", 2, {"mode": "gloo2",
+                                                  "inputs": inputs}, 600)
+        res["gloo_world2"], gloo_paths = dp_check_ranks(
+            torch, step, state_lib, cfg, initial, batch, rand_vec, ranks,
+            secs, "gloo", os.path.join(tmp, "gloo2", "reduced_grads.pt"))
+        paths.update({f"dp_train_{k}": v for k, v in gloo_paths.items()})
+
+        # 2b. A rank on each card over NCCL, where the machine has several.
+        cards = torch.cuda.device_count()
+        n = batch["origins"].shape[0]
+        if cards > 1 and n % (cards * cfg.microbatches) == 0:
+            ranks, secs = dp_launch(tmp, "cards", cards, {
+                "mode": "cards", "inputs": inputs}, 600)
+            one_card = [s for run in ("group", "none")
+                        for s in one[run]["seconds"]]
+            res["nccl_cards"], cards_paths = dp_check_ranks(
+                torch, step, state_lib, cfg, initial, batch, rand_vec, ranks,
+                secs, f"nccl {cards} cards",
+                os.path.join(tmp, "cards", "reduced_grads.pt"))
+            res["nccl_cards"]["one_card_rays_per_s"] = \
+                n / float(np.median(one_card))
+            print(f"[dp nccl {cards} cards] one process on one card, the "
+                  f"same {n} rays: "
+                  f"{res['nccl_cards']['one_card_rays_per_s']:.1f} rays/s "
+                  f"(median of {len(one_card)} f32 steps)", flush=True)
+            paths.update({f"dp_cards_train_{k}": v
+                          for k, v in cards_paths.items()})
+        else:
+            print(f"[dp nccl cards] not run: {cards} card(s), {n} rays in "
+                  f"{cfg.microbatches} microbatches; NCCL with a rank on "
+                  f"each of several cards is unverified on this machine",
+                  flush=True)
+
+        # 3. The entry points at two ranks.
+        res["cli"], cli_paths = dp_cli_phase(torch, gather, scatter, configs,
+                                             cli_eval, tmp)
+        paths.update(cli_paths)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[dp] phase took {res['seconds']:.1f} s", flush=True)
+    return res, paths
+
+
+def dp_check_ranks(torch, step, state_lib, cfg, initial, batch, rand_vec,
+                   ranks, secs, tag, grads_path):
+    """Checks and numbers of a data-parallel launch in mode "gloo2" or
+    "cards": for each backward, every rank's launches a step, the ranks
+    bitwise equal after every step and the two runs bitwise equal; the
+    ranks' fixed-basis losses and reduced gradients equal, and rank 0's
+    against one process (dp_fixed_check).  Returns (results, rank 0's
+    launches over a run, by backward)."""
+    world = len(ranks)
+    per_step = {
+        "f32": {"K1": 20, "K1_fused": 20, "K1_plain": 0, "K2": 20,
+                "K3": 0, "K4": 160, "K4_take": 0, "K4_wsum": 160,
+                "K5": 0, "starts": 40},
+        "bf16": {"K1": 0, "K2": 20, "K3": 20, "K3_fused": 20,
+                 "K3_planar": 0, "K4": 160, "K4_take": 0,
+                 "K4_wsum": 160, "K5": 0, "starts": 40}}
+    n = batch["origins"].shape[0]
+    shared = "sharing one card" if tag == "gloo" else "one card each"
+    out, paths = {"seconds": secs, "per_step_launches": per_step}, {}
+    for label, want in per_step.items():
+        for r, rr in enumerate(ranks):
+            for run in rr[label]:
+                for i, got in enumerate(run["launches"]):
+                    bad = {k: got[k] for k, v in want.items() if got[k] != v}
+                    check(not bad, f"dp {tag} rank {r} {label} step "
+                          f"{i + 1}: launches {bad}, expected {want}")
+        across_ranks = [(r, run, i + 1) for r in range(1, world)
+                        for run in range(2) for i in range(DP_STEPS)
+                        if ranks[r][label][run]["digests"][i]
+                        != ranks[0][label][run]["digests"][i]]
+        across_runs = [(r, i + 1) for r, rr in enumerate(ranks)
+                       for i in range(DP_STEPS)
+                       if rr[label][0]["digests"][i]
+                       != rr[label][1]["digests"][i]]
+        check(not across_ranks, f"dp {tag} {label}: ranks differ from rank "
+              f"0 after (rank, run, step) {across_ranks}")
+        check(not across_runs, f"dp {tag} {label}: the two runs differ at "
+              f"(rank, step) {across_runs}")
+        losses = [rr[label][run]["losses"] for rr in ranks for run in (0, 1)]
+        check(all(x == losses[0] for x in losses),
+              f"dp {tag} {label}: losses {losses}")
+        secs_step = [s for rr in ranks for run in rr[label]
+                     for s in run["seconds"]]
+        rate = n / float(np.median(secs_step))
+        out[label] = {"losses": losses[0], "step_seconds": secs_step,
+                      "rays_per_s": rate,
+                      "launches_per_step_rank0":
+                          ranks[0][label][0]["launches"][0]}
+        paths[label] = {k: sum(s[k] for s in ranks[0][label][0]["launches"])
+                        for k in ranks[0][label][0]["launches"][0]}
+        print(f"[dp {tag} {label}] {world} ranks ({shared}), "
+              f"{ranks[0]['rays']} rays each: launches per rank a step "
+              f"{ranks[0][label][0]['launches'][0]}; parameters and Adam "
+              f"moments bitwise equal across the ranks after each step and "
+              f"across two runs of {DP_STEPS} steps; losses {losses[0]}; "
+              f"step s {[round(s, 4) for s in secs_step]}, {rate:.1f} rays/s "
+              f"of the global batch"
+              + (" (two ranks sharing one card: says nothing of scaling)"
+                 if tag == "gloo" else ""), flush=True)
+    fixed = [rr["fixed"] for rr in ranks]
+    check(all(f == fixed[0] for f in fixed), f"dp {tag}: the ranks' "
+          f"fixed-basis losses or reduced gradients differ: {fixed}")
+    red = ranks[0]["all_reduce"]
+    out.update(peak_bytes_per_rank=[rr["peak_bytes"] for rr in ranks],
+               all_reduce=red,
+               fixed=dp_fixed_check(torch, step, state_lib, cfg, initial,
+                                    batch, rand_vec, fixed[0], grads_path,
+                                    tag, world))
+    print(f"[dp {tag}] all-reduce of {red[0]['bytes']} B a step"
+          + (" through host memory" if tag == "gloo" else "")
+          + f": median {float(np.median([r['ms'] for r in red])):.3f} ms by "
+          f"CUDA events, {float(np.median([r['host_ms'] for r in red])):.3f} "
+          f"ms host; peak per rank {[rr['peak_bytes'] for rr in ranks]} B; "
+          f"{secs:.1f} s with the process starts", flush=True)
+    return out, paths
+
+
+def dp_fixed_check(torch, step, state_lib, cfg, initial, batch, rand_vec,
+                   fixed, grads_path, tag, world):
+    """The one-process reference of the fixed-basis step: the loss terms at
+    GRAD_LOSS_RTOL and each reduced gradient of rank 0 at the card-vs-CPU
+    check's tolerances (GRAD_RTOL and grad_atol_frac of max|grad|)."""
+    model = step.init_model(cfg, seed=0, device="cuda")
+    model.load_state_dict(initial, strict=True)
+    state = state_lib.create_train_state(cfg, model)
+    want = {}
+    update = state.optimizer.update
+
+    def keep_then_update():
+        want.update({k: p.grad.detach().cpu()
+                     for k, p in model.named_parameters()})
+        update()
+
+    state.optimizer.update = keep_then_update
+    _, stats = step.make_train_step(model, cfg)(
+        state, batch, 0.5, rand_vec=rand_vec.cuda())
+    losses = dict({k: float(v) for k, v in stats["losses"].items()},
+                  total=float(stats["loss"]))
+    got_losses = dict(fixed["losses"], total=fixed["loss"])
+    for k, v in losses.items():
+        check(np.isclose(got_losses[k], v, rtol=GRAD_LOSS_RTOL, atol=0),
+              f"dp {tag} vs one process: loss {k} {got_losses[k]} vs {v}")
+    got = torch.load(grads_path, weights_only=True)
+    modules = dict(model.named_modules())
+    worst, bad = {}, []
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = (got[k] - w).abs()
+        frac = grad_atol_frac(modules, k)
+        worst[k] = float(err.max()) / max(scale, 1e-30)
+        if bool((err > GRAD_RTOL * w.abs() + frac * scale).any()):
+            bad.append(f"{k} (err/max|grad| {worst[k]:.3g}, atol "
+                       f"{frac:.3g})")
+    top = sorted(worst, key=worst.get, reverse=True)[:5]
+    n = batch["origins"].shape[0]
+    print(f"[dp {tag}] fixed-basis step, {world} ranks x {n // world} rays "
+          f"vs one process on the {n}: losses {got_losses} vs {losses}; "
+          f"largest "
+          f"gradient misses (err/max|grad|) "
+          f"{ {k: float(f'{worst[k]:.3g}') for k in top} }; tolerance rtol "
+          f"{GRAD_RTOL} + {GRAD_ATOL_FRAC} x max|grad| (tables and "
+          f"density_hidden.weight: table_atol_frac)", flush=True)
+    check(not bad, f"dp {tag} vs one process: reduced gradients out of "
+          f"tolerance: {bad}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"losses": got_losses, "losses_one_process": losses,
+            "worst_grad_err_frac": {k: worst[k] for k in top}}
+
+
+def read_png_u8(path):
+    """The pixels of a PNG that ``vis.encode_png_u8`` wrote (one IDAT chunk,
+    filter type 0 on every scanline)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    w, h = struct.unpack(">II", data[16:24])
+    idat = data.index(b"IDAT")
+    size = struct.unpack(">I", data[idat - 4:idat])[0]
+    raw = np.frombuffer(zlib.decompress(data[idat + 4:idat + 4 + size]),
+                        np.uint8).reshape(h, -1)
+    check(not raw[:, 0].any(), f"{path}: a scanline filter other than 0")
+    return raw[:, 1:].reshape(h, w, -1)
+
+
+def dp_cli_phase(torch, gather, scatter, configs, cli_eval, tmp):
+    """cli.train --multihost at two ranks over gloo on the CLI phase's scene
+    (DP_CLI_STEPS), then cli.eval of its checkpoint at two ranks against a
+    one-process cli.eval of the same checkpoint."""
+    first, second = DP_CLI_STEPS
+    exp = os.path.join(tmp, "exp")
+    gloo = ["--device", "cuda:0", "--dist-backend", "gloo"]
+    argv = ["--preset", "synthetic_quality", "--multihost", *gloo,
+            "-b", 'NerfMLP.grid_bwd_value_dtype = "bfloat16"',
+            "-b", 'PropMLP.grid_bwd_value_dtype = "bfloat16"',
+            "-b", f"Config.exp_name = {exp!r}",
+            "-b", "Config.print_every = 2",
+            "-b", f"Config.train_render_every = {first}",
+            "-b", f"Config.checkpoint_every = {first}",
+            "-b", "Config.lr_delay_steps = 0"]
+    microbatches, levels = 2, 16
+    res, paths = {}, {}
+    for max_steps, start in ((first, 0), (second, first)):
+        name = f"dp_cli_train_{max_steps}"
+        ranks, secs = dp_launch(tmp, name, 2, {
+            "mode": "cli", "module": "ucnerf_tpu_torch.cli.train",
+            "argv": argv + ["--max-steps", str(max_steps)]}, 300)
+        steps = max_steps - start
+        for r, rr in enumerate(ranks):
+            n = rr["launches"]
+            check(n["K3"] == n["K3_fused"] == steps * microbatches * 2
+                  and n["K2"] == steps * microbatches * 2 and n["K1"] == 0
+                  and n["K4_take"] == 0
+                  and n["starts"] == steps * microbatches * 4
+                  and n["K4"] >= steps * microbatches * levels,
+                  f"dp cli.train rank {r}: launches {n} in {steps} steps")
+        written = sorted(os.listdir(exp))
+        kept = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        # TensorBoard's files, where tensorboardX is installed: one a call.
+        check([f for f in written if not f.startswith("events.")]
+              == ["checkpoints", "log_train.txt"] and kept == [str(max_steps)]
+              and sum(f.startswith("events.") for f in written)
+              <= (2 if start else 1),
+              f"dp cli.train: the experiment folder holds {written}, "
+              f"checkpoints {kept}")
+        with open(os.path.join(exp, "log_train.txt")) as f:
+            log = f.read()
+        lines = {int(a): float(b) for a, b in
+                 re.findall(r"step (\d+)/\d+: loss=(\S+)", log)}
+        check(max(lines) == max_steps
+              and ("resumed from step %d" % start in log) == bool(start)
+              and log.count("(rank 0 of 2, gloo)") == (2 if start else 1),
+              f"dp cli.train: logged steps {sorted(lines)}, resume and "
+              f"rank lines wrong for a start at step {start}")
+        render = re.findall(r"test render \d+: psnr=(\S+) ssim=(\S+)", log)
+        check(len(render) == 1 and np.isfinite(float(render[0][0])),
+              f"dp cli.train: test renders {render}")
+        res[name] = {"seconds": secs, "launches": [rr["launches"]
+                                                   for rr in ranks],
+                     "loss": lines, "test_psnr": float(render[0][0])}
+        paths[name] = ranks[0]["launches"]
+        print(f"[dp cli] cli.train --multihost at 2 ranks (gloo, one card) "
+              f"--max-steps {max_steps} from step {start}: {secs:.1f} s with "
+              f"the process starts; logged loss {lines}; test render psnr "
+              f"{render[0][0]}; one log and checkpoints {kept}; launches per "
+              f"rank {[rr['launches'] for rr in ranks]}", flush=True)
+
+    # cli.eval at two ranks, and in this process on a copy of the folder.
+    one = os.path.join(tmp, "exp_one")
+    shutil.copytree(exp, one)
+    eval_argv = ["--preset", "synthetic_quality", "--limit",
+                 str(DP_EVAL_VIEWS)]
+    ranks, secs = dp_launch(tmp, "dp_cli_eval", 2, {
+        "mode": "cli", "module": "ucnerf_tpu_torch.cli.eval",
+        "argv": eval_argv + gloo + ["-b", f"Config.exp_name = {exp!r}"]}, 300)
+    # Not a path of the kernels line: the serving phase counts cli.eval.
+    cli_eval.main(eval_argv + ["-b", f"Config.exp_name = {one!r}"])
+    for r, rr in enumerate(ranks):
+        n = rr["launches"]
+        check(n["K4"] > 0 and n["K4_take"] == 0 and all(
+            v == 0 for k, v in n.items() if not k.startswith("K4")),
+            f"dp cli.eval rank {r}: launches {n}; expected K4 alone")
+    metrics = {}
+    for key in ("psnr", "ssim"):
+        vals = []
+        for folder in (exp, one):
+            with open(os.path.join(folder, f"{key}_{second}.txt")) as f:
+                vals.append([float(v) for v in f.read().split()])
+        metrics[key] = vals
+        check(len(vals[0]) == DP_EVAL_VIEWS and np.allclose(
+            vals[0], vals[1], rtol=DP_METRIC_RTOL, atol=0),
+            f"dp cli.eval: {key} at 2 ranks {vals[0]}, at 1 {vals[1]}")
+    images = [read_png_u8(os.path.join(folder, "test_preds",
+                                       "color_000.png"))
+              for folder in (exp, one)]
+    diff = np.abs(images[0].astype(int) - images[1].astype(int))
+    check(images[0].shape == images[1].shape and diff.max() <= 1,
+          f"dp cli.eval: view 0's image at 2 ranks and at 1 differ by up "
+          f"to {diff.max()} of 255")
+    res["dp_cli_eval"] = {
+        "seconds": secs, "launches": [rr["launches"] for rr in ranks],
+        "metrics_two_one": metrics,
+        "view0_u8_max_diff": int(diff.max()),
+        "view0_u8_pixels_differing": int((diff > 0).sum())}
+    paths["dp_cli_eval"] = ranks[0]["launches"]
+    print(f"[dp cli] cli.eval at 2 ranks (gloo) vs 1 on the step-{second} "
+          f"checkpoint, {DP_EVAL_VIEWS} views: psnr {metrics['psnr'][0]} vs "
+          f"{metrics['psnr'][1]}, ssim {metrics['ssim'][0]} vs "
+          f"{metrics['ssim'][1]} (rtol {DP_METRIC_RTOL}); view 0's 8-bit "
+          f"image differs by at most {diff.max()} in "
+          f"{int((diff > 0).sum())} values; launches per rank "
+          f"{[rr['launches'] for rr in ranks]}; {secs:.1f} s", flush=True)
+    return res, paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
     parser.add_argument("--profile", help="also profile one render chunk "
                         "and write its kernel table here")
+    parser.add_argument("--dp-worker", metavar="SPEC",
+                        help="run one rank of the data-parallel phase "
+                             "(started by this script)")
     parser.add_argument("--profile-train", help="also profile one training "
                         "step with each backward, one with camera "
                         "refinement, one with normals and one with the "
@@ -3612,6 +4227,8 @@ def main(argv=None):
                         "and beside it with '.bf16', '.cam', '.normals' and "
                         "'.options' before the extension")
     args = parser.parse_args(argv)
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
 
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -3682,6 +4299,15 @@ def main(argv=None):
     repeat_res = repeat_phase(torch, step, state_lib,
                               (("f32", train_cfg), ("bf16", bf16_cfg)),
                               initial, batch)
+    torch.cuda.empty_cache()
+    dp_res, dp_paths = dp_phase(torch, gather, scatter, configs, step,
+                                state_lib, train_cfg, initial, batch)
+    # Every K4 launch of the data-parallel paths (rank 0's) is the fused
+    # entry, as on the one-process training and serving paths.
+    for label, n in dp_paths.items():
+        check(n["K4_take"] == 0 and n["K4_wsum"] > 0,
+              f"{label}: K4 launches {n}; expected the fused entry alone")
+        K4_BY_ENTRY["take_wsum_cm"] += n["K4_wsum"]
     torch.cuda.empty_cache()
 
     # Camera refinement from the same initial weights and batch, the deltas
@@ -3777,7 +4403,7 @@ def main(argv=None):
              "encode": encode_launches,
              "cli_train": cli_res[0]["launches"],
              "cli_resume": cli_res[1]["launches"], **serve_paths,
-             **mvs_paths, **pose_paths}
+             **mvs_paths, **pose_paths, **dp_paths}
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2"), (k3, "K3"),
                        (k5, "K5")):
         entry["launches_by_path"] = {p: n[key] for p, n in paths.items()
@@ -3841,6 +4467,12 @@ def main(argv=None):
         entry["launches_per_step"] = train_res["launches_per_step"][key]
         entry["launches_per_camera_step"] = cam_res["launches_per_step"][key]
     k3["launches_per_step"] = bf16_res["launches_per_step"]["K3"]
+    # Per rank of the two-rank data-parallel step (7500 rays a rank).
+    dp_step = {label: dp_res["gloo_world2"][label]["launches_per_step_rank0"]
+               for label in ("f32", "bf16")}
+    for entry, key, label in ((k4, "K4", "f32"), (k1, "K1", "f32"),
+                              (k2, "K2", "f32"), (k3, "K3", "bf16")):
+        entry["launches_per_dp_step_per_rank"] = dp_step[label][key]
     # The normals step's new roles: K4's two entries and K1's fused entry
     # twice (the table gradient and the double backward's d/d table).
     k4["launches_per_normals_step"] = {
@@ -3860,7 +4492,7 @@ def main(argv=None):
                        "render": slice_res, "train": train_res,
                        "train_bf16": bf16_res, "train_cam": cam_res,
                        "train_normals": norm_res, "train_options": opt_res,
-                       "repeat": repeat_res, "cli": cli_res,
+                       "repeat": repeat_res, "dp": dp_res, "cli": cli_res,
                        "serve": serve_res, "grad_check": grad_res,
                        "mvs": mvs_res, "pose": pose_res}, f, indent=1)
     print(card)

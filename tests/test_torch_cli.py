@@ -196,8 +196,18 @@ def test_cli_train_runs_and_resumes_bitwise(tmp_path, monkeypatch, bf16):
 
 def test_cli_train_refuses_what_it_cannot_do(tmp_path, monkeypatch):
     exp = str(tmp_path / "exp")
-    with pytest.raises(NotImplementedError, match="multihost"):
+    # --multihost without torchrun's environment: no fallback to one
+    # process.
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli_train.main(["--tiny", "--device", "cpu", "--multihost"])
+    # Several processes without --multihost would write one folder.
+    with monkeypatch.context() as mp:
+        mp.setenv("WORLD_SIZE", "2")
+        with pytest.raises(RuntimeError, match="without --multihost"):
+            cli_train.main(["--tiny", "--device", "cpu"])
     with pytest.raises(ValueError, match="binding scope"):
         _run(exp, "-b", "Nope.field = 1")
 

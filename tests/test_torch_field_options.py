@@ -130,7 +130,8 @@ def _case(option):
 
     grads_j = jax.tree.map(np.asarray, jax.grad(loss_j)(params))
 
-    mlp_t = tfields.ZipMLP(cfg_t, torch.Generator().manual_seed(0))
+    mlp_t = tfields.ZipMLP(cfg_t, torch.Generator().manual_seed(0),
+                           with_glo=option == "glo")
     mlp_t.load_state_dict(convert.params_from_jax(
         jax.tree.map(np.asarray, params)), strict=True)
     out_t = mlp_t(torch.from_numpy(means), torch.from_numpy(stds),

@@ -72,12 +72,13 @@ def _close(got, want, **tol):
     np.testing.assert_allclose(got, np.asarray(want), **(tol or TOL))
 
 
-def _train_config(lib, value_dtype=None, **over):
+def _train_config(lib, value_dtype=None, mlp_over=None, **over):
     """The tiny preset with 2^16-row hash maps and the dense-level backward
-    (K2) on both fields; `value_dtype` sets ``grid_bwd_value_dtype``."""
+    (K2) on both fields; `value_dtype` sets ``grid_bwd_value_dtype`` and
+    `mlp_over` other fields of both MLP configs."""
     cfg = lib.tiny(**over)
     mlp = dict(grid_log2_hashmap_size=16, grid_bwd_dense_sample=True,
-               grid_bwd_value_dtype=value_dtype)
+               grid_bwd_value_dtype=value_dtype, **(mlp_over or {}))
     return dataclasses.replace(
         cfg, nerf_mlp=dataclasses.replace(cfg.nerf_mlp, **mlp),
         prop_mlp=dataclasses.replace(cfg.prop_mlp, **mlp))
@@ -105,13 +106,13 @@ def _batch(cfg, rng):
     return b
 
 
-def _step_case(value_dtype=None):
+def _step_case(value_dtype=None, **mlp_over):
     """One tiny-preset step on both sides: JAX ``value_and_grad`` of its
     train loss under ``jax.jit`` with the Pallas scatters in interpret mode
     (key=None), and the port's ``train_step`` with ``microbatches=1`` on the
     same parameters, batch and hex basis (generator=None)."""
     rng = np.random.default_rng(7)
-    cfg_j, cfg_t = (_train_config(lib, value_dtype)
+    cfg_j, cfg_t = (_train_config(lib, value_dtype, mlp_over)
                     for lib in (jconfigs, tconfigs))
     model_j, params = jstep.init_model(cfg_j, jax.random.PRNGKey(0))
     params = _randomize(params, rng)
@@ -198,6 +199,10 @@ def _leaves(tree, prefix=""):
 
 
 def test_train_step_grads_match_jax(step_case):
+    _check_grads(step_case)
+
+
+def _check_grads(step_case):
     want = dict(_leaves(step_case["grads_j"]))
     got = dict(_leaves(step_case["grads_t"]))
     assert set(got) == set(want)
@@ -208,6 +213,28 @@ def test_train_step_grads_match_jax(step_case):
         assert scale > 0, name
         atol = (2e-5 if name.endswith("table") else 1e-5) * scale
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=atol, err_msg=name)
+
+
+def test_glo_config_loads_a_jax_tree_strictly():
+    """With ``num_glo_features > 0`` the JAX model's tree has no GLO layers
+    (no ``glo_vec`` reaches its fields), and neither has the port's."""
+    cfgs = [dataclasses.replace(lib.tiny(), nerf_mlp=dataclasses.replace(
+        lib.tiny().nerf_mlp, num_glo_features=4))
+        for lib in (jconfigs, tconfigs)]
+    _, params = jstep.init_model(cfgs[0], jax.random.PRNGKey(0))
+    model = tstep.init_model(cfgs[1], seed=0, device="cpu")
+    model.load_state_dict(convert.params_from_jax(
+        jax.tree.map(np.asarray, params)), strict=True)
+    assert not [k for k in model.state_dict() if "glo" in k]
+
+
+def test_glo_config_step_matches_jax():
+    """The whole step at ``num_glo_features=4`` on both fields, at the f32
+    step's tolerances (the strict load is inside ``_step_case``)."""
+    case = _step_case(num_glo_features=4)
+    assert case["cfg"].nerf_mlp.num_glo_features == 4
+    _check_losses(case)
+    _check_grads(case)
 
 
 def _table_misses(got, want):

@@ -6,13 +6,18 @@ metrics plus their color-corrected variants (an affine fit of the
 prediction onto the ground truth, ``utils/image.color_correct``), writes
 per-image outputs under ``<exp>/test_preds/`` and one ``<metric>_<step>.txt``
 per metric, and can poll for new checkpoints like the reference's follower
-mode (``Config.eval_only_once = False``).  One process, one device: the
-JAX package's mesh has no counterpart here.
+mode (``Config.eval_only_once = False``).  Under torchrun with
+``WORLD_SIZE > 1`` the ranks join one process group and split every image's
+chunks between them (``step.render_image`` with the group, the JAX CLI's
+mesh over every device); rank 0 picks the checkpoint, computes the metrics
+and writes every file.
 
 Usage:
   python -m ucnerf_tpu_torch.cli.eval --preset waymo \
       -b "Config.exp_name = '...'"
   python -m ucnerf_tpu_torch.cli.eval --tiny --device cpu
+  torchrun --nproc-per-node 8 -m ucnerf_tpu_torch.cli.eval --preset waymo \
+      -b "Config.exp_name = '...'"   # one rank per card
 """
 
 from __future__ import annotations
@@ -37,10 +42,16 @@ def main(argv=None):
                              "panels for the first test image "
                              "(vis.py:193-221)")
     common.add_device_arg(parser)
+    common.add_dist_args(parser)
     args = parser.parse_args(argv)
     config = common.load_config_from_args(args)
+
+    from ucnerf_tpu_torch.parallel import mesh
+
+    device, group = common.join_processes(args, mesh.launched())
     exp, logger = common.setup_experiment(config, "eval")
-    device = common.resolve_device(args.device, logger)
+    common.log_processes(device, group, logger)
+    main_process = mesh.is_main_process()
 
     from ucnerf_tpu_torch.data import datasets
     from ucnerf_tpu_torch.train import checkpoints as ckpt_lib
@@ -52,14 +63,18 @@ def main(argv=None):
 
     last_step = -1
     while True:
-        # Cheap poll first: a restore reads the whole checkpoint.
-        step = ckpt_lib.latest_checkpoint_step(exp) or 0
+        # Cheap poll first: a restore reads the whole checkpoint.  Rank 0
+        # picks the step, so that every rank restores the same one.
+        latest = mesh.broadcast_object(ckpt_lib.latest_checkpoint_step(exp),
+                                       group)
+        step = latest or 0
         if step == last_step:
             if config.eval_only_once:
                 break
             time.sleep(10)
             continue
-        step = ckpt_lib.restore_model(exp, model)
+        if latest is not None:
+            ckpt_lib.restore_model(exp, model, latest)
         last_step = step
         logger.info("evaluating checkpoint step %d", step)
 
@@ -78,8 +93,10 @@ def main(argv=None):
             t0 = time.time()
             rendering = step_lib.render_image(
                 eval_step, img_batch, config, train_frac=1.0,
-                eval_camidx=camidx)
+                eval_camidx=camidx, group=group)
             dt = time.time() - t0
+            if not main_process:
+                continue
             gt = img_batch["rgb"]
             pred = np.clip(rendering["rgb"], 0, 1)
             metrics = harness(pred, gt,
@@ -107,6 +124,9 @@ def main(argv=None):
                 logger.info("mean %s = %.4f", key, float(np.mean(vals)))
         if config.eval_only_once:
             break
+    if group is not None:
+        mesh.barrier(group)
+        mesh.shutdown()
 
 
 def save_panels(out_dir, tag, pred, rendering):

@@ -5,7 +5,10 @@ Interpolates a camera path from the dataset trajectory
 (``data/paths.generate_render_path``), renders color/depth/acc frames with
 ``train/step.render_image`` (skipping frames that already exist, so a
 re-run resumes), and assembles mp4 videos when imageio and an ffmpeg
-backend are installed; otherwise it logs that and leaves the frames.
+backend are installed; otherwise it logs that and leaves the frames.  Under
+torchrun with ``WORLD_SIZE > 1`` the ranks split every frame's chunks
+(``step.render_image`` with the group); rank 0 decides which frames to skip
+and writes every file.
 
 Usage:
   python -m ucnerf_tpu_torch.cli.render --preset waymo \
@@ -30,12 +33,18 @@ def main(argv=None):
         choices=["keyframe", "spiral", "ellipse", "spline"],
         help="render trajectory generator (default: Config.render_path_type)")
     common.add_device_arg(parser)
+    common.add_dist_args(parser)
     args = parser.parse_args(argv)
     config = common.load_config_from_args(args)
     if args.path_type is not None:
         config = dataclasses.replace(config, render_path_type=args.path_type)
+
+    from ucnerf_tpu_torch.parallel import mesh
+
+    device, group = common.join_processes(args, mesh.launched())
     exp, logger = common.setup_experiment(config, "render")
-    device = common.resolve_device(args.device, logger)
+    common.log_processes(device, group, logger)
+    main_process = mesh.is_main_process()
 
     from ucnerf_tpu_torch.cli.eval import save_panels
     from ucnerf_tpu_torch.data import datasets, paths
@@ -44,7 +53,9 @@ def main(argv=None):
 
     dataset = datasets.load_dataset("test", config)
     model = step_lib.init_model(config, seed=0, device=device)
-    step = ckpt_lib.restore_model(exp, model)
+    latest = mesh.broadcast_object(ckpt_lib.latest_checkpoint_step(exp),
+                                   group)
+    step = ckpt_lib.restore_model(exp, model, latest)
     logger.info("rendering checkpoint at step %d", step)
 
     eval_step = step_lib.make_eval_step(model, config)
@@ -57,19 +68,29 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
     zpad = max(3, len(str(len(path_poses) - 1)))
 
+    # Rank 0 decides which frames exist, so that every rank skips the same.
+    done = mesh.broadcast_object(
+        [os.path.exists(os.path.join(out_dir,
+                                     f"color_{str(i).zfill(zpad)}.png"))
+         for i in range(len(path_poses))], group)
     for idx, pose in enumerate(path_poses):
         idx_str = str(idx).zfill(zpad)
-        if os.path.exists(os.path.join(out_dir, f"color_{idx_str}.png")):
+        if done[idx]:
             logger.info("frame %d already exists, skipping", idx)
             continue
         rendering = step_lib.render_image(
             eval_step, _pose_image_batch(dataset, pose, config), config,
-            train_frac=1.0, eval_camidx=0)
-        save_panels(out_dir, idx_str, np.clip(rendering["rgb"], 0, 1),
-                    rendering)
+            train_frac=1.0, eval_camidx=0, group=group)
+        if main_process:
+            save_panels(out_dir, idx_str, np.clip(rendering["rgb"], 0, 1),
+                        rendering)
         logger.info("rendered frame %d/%d", idx + 1, len(path_poses))
 
-    _write_videos(out_dir, exp, len(path_poses), zpad, config, logger)
+    if main_process:
+        _write_videos(out_dir, exp, len(path_poses), zpad, config, logger)
+    if group is not None:
+        mesh.barrier(group)
+        mesh.shutdown()
 
 
 def _pose_image_batch(dataset, pose, config):

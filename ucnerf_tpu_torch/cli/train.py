@@ -1,5 +1,5 @@
 """Training CLI (port of ``ucnerf_tpu/cli/train.py``): the reference's train
-loop for one process and one card.
+loop, on one card or data-parallel over processes.
 
 One train step per iteration; the host does only ray sampling and logging.
 Per-``print_every`` stats (loss breakdown, rays/s over the steps since the
@@ -16,15 +16,25 @@ Usage:
       -b 'NerfMLP.grid_bwd_value_dtype = "bfloat16"' \
       -b 'PropMLP.grid_bwd_value_dtype = "bfloat16"'
   python -m ucnerf_tpu_torch.cli.train --tiny --device cpu   # smoke run
+  torchrun --nproc-per-node 8 -m ucnerf_tpu_torch.cli.train --multihost \
+      --preset waymo -b "Config.exp_name = '...'"   # one rank per card
 
-Every step draws its ray batch from ``np.random.default_rng((1234, step))``
-and its jitter and hex patterns from a ``torch.Generator`` seeded from
-``(5678, step)``, so a run resumed from a checkpoint takes the steps an
+Every step draws its ray batch from
+``np.random.default_rng((1234, step, rank))`` and its jitter and hex
+patterns from a ``torch.Generator`` seeded from ``(5678, step, rank)``
+(rank 0 on one process, where these are the ``(1234, step)`` and
+``(5678, step)`` draws: numpy pads the entropy with zeros), so a run resumed from a checkpoint takes the steps an
 uninterrupted run would have taken, bit for bit on one device; the test
 renders draw their hex basis from the chunk's size alone
 (``step.make_eval_step``), so they and their PSNR match too.  (The JAX
 loop folds the step into its device key the same way, but seeds one host
 stream from ``1234 + init_step``, so its resumed runs draw other batches.)
+
+With ``--multihost`` (under torchrun) each of W ranks draws its own
+batch_size / W rays and patterns from those seeds (the JAX loop folds the
+process index into its host seed), the gradients are averaged over the ranks in the step, and only rank
+0 writes the log file, TensorBoard and checkpoints.  Every rank reads the
+checkpoint it resumes from, and rank 0's parameters are broadcast after it.
 """
 
 from __future__ import annotations
@@ -36,9 +46,12 @@ import time
 import numpy as np
 
 
-def _step_seed(base: int, step: int) -> int:
-    """A 63-bit seed mixed from (base, step)."""
-    state = np.random.SeedSequence((base, step)).generate_state(1, np.uint64)
+def _step_seed(*entropy: int) -> int:
+    """A 63-bit seed mixed from the entropy words.  numpy's SeedSequence
+    pads its entropy with zeros, so (base, step, 0) mixes what (base, step)
+    mixes: rank 0's seeds are the ones a single process drew before ranks
+    had a seed word."""
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return int(state[0] >> np.uint64(1))
 
 
@@ -51,19 +64,27 @@ def main(argv=None):
                         help="capture a torch.profiler trace over N steps "
                              "(written to <exp>/profile)")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported: several processes need the "
-                             "port of parallel/mesh.py")
+                        help="train data-parallel over the processes "
+                             "torchrun started (parallel/mesh.py)")
     common.add_device_arg(parser)
+    common.add_dist_args(parser)
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: training across processes (parallel/mesh.py) is "
-            "not ported; run one process on one card")
     config = common.load_config_from_args(args)
     if args.max_steps is not None:
         config = dataclasses.replace(config, max_steps=args.max_steps)
 
+    from ucnerf_tpu_torch.parallel import mesh
+
+    if mesh.launched() and not args.multihost:
+        raise RuntimeError(
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']} without --multihost: "
+            f"that many independent runs would write one experiment "
+            f"folder; pass --multihost to train data-parallel")
+    device, group = common.join_processes(args, args.multihost)
     exp, logger = common.setup_experiment(config, "train")
+    common.log_processes(device, group, logger)
+    rank, world = mesh.rank(group), mesh.world_size(group)
+    main_process = rank == 0
 
     import torch
 
@@ -74,7 +95,10 @@ def main(argv=None):
     from ucnerf_tpu_torch.train import step as step_lib
     from ucnerf_tpu_torch.utils import image as image_lib
 
-    device = common.resolve_device(args.device, logger)
+    if config.batch_size % world:
+        raise ValueError(f"batch_size {config.batch_size} must divide "
+                         f"evenly across {world} processes")
+    local_batch_size = config.batch_size // world
 
     dataset = datasets.load_dataset("train", config)
     test_dataset = datasets.load_dataset("test", config)
@@ -107,18 +131,27 @@ def main(argv=None):
         state, init_step = ckpt_lib.restore_checkpoint(exp, state)
         if init_step:
             logger.info("resumed from step %d", init_step)
+    # The replicas start equal: rank 0's parameters, after init or resume.
+    mesh.broadcast_parameters(model, group)
 
-    train_step = step_lib.make_train_step(model, config)
+    train_step = step_lib.make_train_step(model, config, group)
     eval_step = step_lib.make_eval_step(model, config)
     metric_harness = image_lib.MetricHarness()
 
     # TensorBoard scalars/images, when tensorboardX is installed.
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(exp)
-    except ImportError:
-        pass
+    if main_process:
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(exp)
+        except ImportError:
+            pass
+
+    def save(step):
+        if main_process:
+            ckpt_lib.save_checkpoint(exp, state, step,
+                                     config.checkpoints_total_limit)
+        mesh.barrier(group)
 
     generator = torch.Generator(device=device)
     profiler = None
@@ -129,7 +162,8 @@ def main(argv=None):
     window_start = init_step  # the last step of the previous log window
     try:
         for step in range(init_step + 1, config.max_steps + 1):
-            if args.profile_steps and step == profile_start:
+            if args.profile_steps and main_process \
+                    and step == profile_start:
                 # Trace steady-state steps: the trace shows where each
                 # step's time goes.
                 from torch.profiler import ProfilerActivity, profile
@@ -141,11 +175,12 @@ def main(argv=None):
             if profiler is not None and step == profile_stop:
                 profiler = _stop_profiler(profiler, exp, logger)
             batch = step_lib.batch_to_device(dataset.sample_batch(
-                np.random.default_rng((1234, step)), config.batch_size),
-                device)
+                np.random.default_rng((1234, step, rank)),
+                local_batch_size), device)
             train_frac = float(np.clip(
                 (step - 1) / max(config.max_steps - 1, 1), 0, 1))
-            generator.manual_seed(_step_seed(5678, step))
+            generator.manual_seed(
+                _step_seed(5678, step, rank))
             state, stats = train_step(state, batch, train_frac,
                                       generator=generator)
 
@@ -190,22 +225,15 @@ def main(argv=None):
                     eval_step, img_batch, config,
                     train_frac=train_frac,
                     eval_camidx=_eval_camidx(config, idx,
-                                             test_dataset.cam_num))
-                metrics = metric_harness(rendering["rgb"], img_batch["rgb"])
-                logger.info("test render %d: psnr=%.2f ssim=%.3f (%.1fs)",
-                            idx, metrics["psnr"], metrics["ssim"],
-                            time.time() - t0)
-                if writer is not None:
-                    writer.add_scalar("test_psnr", metrics["psnr"], step)
-                    writer.add_scalar("test_ssim", metrics["ssim"], step)
-                    writer.add_image(
-                        "test_render",
-                        np.clip(rendering["rgb"], 0, 1).transpose(2, 0, 1),
-                        step)
+                                             test_dataset.cam_num),
+                    group=group)
+                if main_process:
+                    _log_test_render(metric_harness, rendering, img_batch,
+                                     idx, step, time.time() - t0, logger,
+                                     writer)
 
             if step % config.checkpoint_every == 0:
-                ckpt_lib.save_checkpoint(exp, state, step,
-                                         config.checkpoints_total_limit)
+                save(step)
                 logger.info("checkpoint saved at step %d", step)
     finally:
         if profiler is not None:
@@ -213,9 +241,23 @@ def main(argv=None):
         if writer is not None:
             writer.close()
 
-    ckpt_lib.save_checkpoint(exp, state, config.max_steps,
-                             config.checkpoints_total_limit)
+    save(config.max_steps)
     logger.info("done in %.1fs", time.time() - t_start)
+    if group is not None:
+        mesh.shutdown()
+
+
+def _log_test_render(metric_harness, rendering, img_batch, idx, step, secs,
+                     logger, writer):
+    metrics = metric_harness(rendering["rgb"], img_batch["rgb"])
+    logger.info("test render %d: psnr=%.2f ssim=%.3f (%.1fs)",
+                idx, metrics["psnr"], metrics["ssim"], secs)
+    if writer is not None:
+        writer.add_scalar("test_psnr", metrics["psnr"], step)
+        writer.add_scalar("test_ssim", metrics["ssim"], step)
+        writer.add_image("test_render",
+                         np.clip(rendering["rgb"], 0, 1).transpose(2, 0, 1),
+                         step)
 
 
 def _stop_profiler(profiler, exp, logger):

@@ -10,8 +10,9 @@ and the kernels: JAX stores a dense kernel [in, out] and a conv kernel
 [out, in, kh, kw].  Hash tables stay channel-major [C, rows] on both sides.
 The field's option layers (``normal_layer``, ``lin_glo_*``, the wider
 ``density_hidden`` of scale featurization) carry the JAX names and shapes,
-so they cross the same way; a JAX model tree holds the GLO layers only if
-a ``glo_vec`` was passed at its init, the port's ``ZipMLP`` always.
+so they cross the same way; both hold the GLO layers only for a field that
+takes a ``glo_vec`` (the JAX one if one was passed at its init, the port's
+``ZipMLP`` if built ``with_glo``), which neither model's fields do.
 """
 
 from __future__ import annotations

@@ -88,12 +88,21 @@ def pos_enc_width(deg: int) -> int:
 
 
 class ZipMLP(nn.Module):
-    """Density + color field over hash-grid features (channel-major)."""
+    """Density + color field over hash-grid features (channel-major).
 
-    def __init__(self, config: MLPConfig, generator: torch.Generator):
+    ``with_glo`` says that a ``glo_vec`` will be passed: only then, and with
+    ``num_glo_features > 0``, are the GLO layers built.  The JAX tree holds
+    them only where a ``glo_vec`` reached the field at init, and the JAX
+    ``UCNeRFModel`` never passes one, so the model builds its fields without
+    them and loads a JAX tree of any config strictly.
+    """
+
+    def __init__(self, config: MLPConfig, generator: torch.Generator,
+                 with_glo: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.with_glo = with_glo and cfg.num_glo_features > 0
         cdt = cfg.compute_dtype
         self.grid_spec = hashgrid.HashGridSpec(
             input_dim=3,
@@ -117,7 +126,7 @@ class ZipMLP(nn.Module):
         if cfg.enable_pred_normals:
             self.normal_layer = DenseCM(out_width, 3, generator)
         if not cfg.disable_rgb:
-            if cfg.num_glo_features > 0:
+            if self.with_glo:
                 width = cfg.num_glo_features
                 for i in range(cfg.net_depth_glo):
                     last = i == cfg.net_depth_glo - 1
@@ -239,8 +248,8 @@ class ZipMLP(nn.Module):
           means: [3, 6, R, S] multisample Gaussian means (channel-major).
           stds: [6, R, S] multisample stds.
           viewdirs: [R, 3] per-ray view directions.
-          glo_vec: optional [R, num_glo_features] appearance codes (the JAX
-            model never passes one).
+          glo_vec: optional [R, num_glo_features] appearance codes, for a
+            field built ``with_glo`` (the JAX model never passes one).
           generator: the keyed training forward's torch.Generator: the
             density and bottleneck noise (where their scales are > 0) are
             standard normals drawn from it, density first.
@@ -295,6 +304,9 @@ class ZipMLP(nn.Module):
                 bottleneck = bottleneck + cfg.bottleneck_noise * \
                     noise["bottleneck"]
             if glo_vec is not None and cfg.num_glo_features > 0:
+                if not self.with_glo:
+                    raise ValueError("glo_vec passed to a field built "
+                                     "without with_glo")
                 g = glo_vec.T  # [G, R]
                 for i in range(cfg.net_depth_glo):
                     g = getattr(self, f"lin_glo_{i}")(g)

@@ -69,12 +69,14 @@ def _load(base_folder: str, step: int, device):
                       map_location=device, weights_only=True)
 
 
-def restore_model(base_folder: str, model: torch.nn.Module) -> int:
-    """Load the newest checkpoint's parameters into `model`, on the device
-    it is on, and leave its optimizer state on disk (the serving CLIs need
-    no Adam moments).  Returns the step; 0, with `model` untouched, when
-    none exists."""
-    step = latest_checkpoint_step(base_folder)
+def restore_model(base_folder: str, model: torch.nn.Module,
+                  step: Optional[int] = None) -> int:
+    """Load the newest checkpoint's parameters (or those of checkpoint
+    `step`) into `model`, on the device it is on, and leave its optimizer
+    state on disk (the serving CLIs need no Adam moments).  Returns the
+    step; 0, with `model` untouched, when none exists."""
+    if step is None:
+        step = latest_checkpoint_step(base_folder)
     if step is None:
         return 0
     payload = _load(base_folder, step, next(model.parameters()).device)

@@ -9,6 +9,11 @@ scaled by 1/microbatches, then one optimizer update.  ``render_image``
 chunks an image's rays on the host, renders each chunk with the eval step
 (optionally in ``render_subchunks`` sequential pieces, which bound the
 activation peak at the piece's size), and reassembles numpy arrays.
+
+Both take an optional process group (``parallel/mesh.py``): the step then
+receives the rank's local batch and averages the ranks' gradients and
+stats, and the render splits each chunk over the ranks and gathers it back
+(the JAX package's mesh-sharded step and render).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from ucnerf_tpu_torch.configs import Config
 from ucnerf_tpu_torch.models.model import UCNeRFModel
+from ucnerf_tpu_torch.parallel import mesh as meshlib
 from ucnerf_tpu_torch.train import losses as losses_lib
 from ucnerf_tpu_torch.train.state import TrainState
 
@@ -74,7 +80,7 @@ def batch_to_device(arrays, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_train_step(model: UCNeRFModel, config: Config):
+def make_train_step(model: UCNeRFModel, config: Config, group=None):
     """Build the train step.
 
     Returns ``train_step(state, batch, train_frac, generator=None,
@@ -86,6 +92,15 @@ def make_train_step(model: UCNeRFModel, config: Config):
     holds the microbatch means of the total (``loss``), of each loss term
     (``losses``) and of the per-level MSEs (``mses``), as tensors.
 
+    With a process `group` of W ranks, batch is this rank's local batch of
+    B / W rays, split into microbatches of B / (W M) rays as the JAX step
+    splits each global microbatch over its devices.  After the microbatch
+    loop one all-reduce replaces each gradient by the ranks' mean
+    (``mesh.all_reduce_grads``; every loss is a ray mean, so that is the
+    global batch's gradient), before the optimizer cleans, clips and steps,
+    and the stats are averaged over the ranks too.  At W = 1 the reduce is
+    the identity, bit for bit.
+
     The JAX package recomputes the fields in the backward
     (``remat_fields``, for a TPU's 16 GB); the port keeps the activations
     and ignores that knob.
@@ -96,8 +111,9 @@ def make_train_step(model: UCNeRFModel, config: Config):
                    rand_vec=None):
         n = batch["origins"].shape[0]
         if n % num_micro:
-            raise ValueError(f"{n} rays do not split into {num_micro} "
-                             f"microbatches")
+            w = meshlib.world_size(group) if group is not None else 1
+            raise ValueError(f"{n * w} rays over {w} rank(s) do not split "
+                             f"into {num_micro} microbatches a rank")
         size = n // num_micro
         params = list(state.model.parameters())
         for p in params:
@@ -129,15 +145,32 @@ def make_train_step(model: UCNeRFModel, config: Config):
                 for p in params:
                     if p.grad is not None:
                         p.grad.mul_(inv)
+        if group is not None:
+            meshlib.all_reduce_grads(params, group)
         state.optimizer.update()
         new_state = TrainState(step=state.step + 1, model=state.model,
                                optimizer=state.optimizer)
         out = {k: v * inv for k, v in stats_acc.items()}
         out["loss"] = total_acc * inv
         out["losses"] = {k: v * inv for k, v in losses_acc.items()}
+        if group is not None:
+            out = _mean_over_ranks(out, group)
         return new_state, out
 
     return train_step
+
+
+def _mean_over_ranks(stats, group):
+    """stats (tensors, and a dict of them under ``losses``) averaged over
+    the ranks in one all-reduce."""
+    keys = [k for k in stats if k != "losses"]
+    loss_keys = list(stats["losses"])
+    means = meshlib.all_reduce_mean(
+        [stats[k] for k in keys] + [stats["losses"][k] for k in loss_keys],
+        group)
+    out = dict(zip(keys, means))
+    out["losses"] = dict(zip(loss_keys, means[len(keys):]))
+    return out
 
 
 def hex_basis(seed: int, n: int) -> torch.Tensor:
@@ -203,21 +236,12 @@ def make_eval_step(model: UCNeRFModel, config: Config,
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
     eval_step.device = device
+    eval_step.basis = basis
     return eval_step
 
 
-def _pad_rays(arrays, multiple: int):
-    """Edge-pad every [n, ...] array to a multiple of `multiple` rays."""
-    n = next(iter(arrays.values())).shape[0]
-    pad = -n % multiple
-    if pad:
-        arrays = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
-                  for k, v in arrays.items()}
-    return arrays, pad
-
-
 def render_image(eval_step, batch, config: Config, train_frac=1.0,
-                 eval_camidx=0, rand_vec=None):
+                 eval_camidx=0, rand_vec=None, group=None):
     """Render all rays of an image by chunking through the eval step.
 
     Args:
@@ -225,9 +249,16 @@ def render_image(eval_step, batch, config: Config, train_frac=1.0,
       batch: dict of [H, W, ...] ray arrays (host numpy).
       eval_camidx: brightness-correction view id for this render.
       rand_vec: optional [H, W, 3] hex-basis vectors (else eval_step draws).
+      group: optional process group of W ranks, each of which calls this
+        with the same arguments: each chunk is padded to a multiple of
+        W x render_subchunks rays, each rank renders its ``process_slice``
+        of it, and ``all_gather_rays`` hands every rank the whole chunk.
+        The hex basis of a chunk is the one a single process would draw for
+        it (padded and sliced like the rays), so the render is the same at
+        every W up to the rounding of batched arithmetic over other sizes.
 
     Returns:
-      dict of [H, W, ...] numpy arrays.
+      dict of [H, W, ...] numpy arrays, on every rank.
     """
     height, width = batch["origins"].shape[:2]
     num_rays = height * width
@@ -237,14 +268,27 @@ def render_image(eval_step, batch, config: Config, train_frac=1.0,
         flat["rand_vec"] = np.asarray(rand_vec, np.float32).reshape(
             num_rays, 3)
 
+    world, rank = ((1, 0) if group is None else
+                   (meshlib.world_size(group), meshlib.rank(group)))
+    sub = max(config.render_subchunks, 1)
     chunk = config.render_chunk_size
     outs = []
     for i0 in range(0, num_rays, chunk):
-        part, pad = _pad_rays({k: v[i0:i0 + chunk] for k, v in flat.items()},
-                              max(config.render_subchunks, 1))
-        tensors = batch_to_device(part, eval_step.device)
+        part = {k: v[i0:i0 + chunk] for k, v in flat.items()}
+        n = next(iter(part.values())).shape[0]
+        part, pad = meshlib.pad_rays_to_multiple(part, world * sub)
+        lo, hi = meshlib.process_slice(n + pad, rank, world)
+        tensors = batch_to_device({k: v[lo:hi] for k, v in part.items()},
+                                  eval_step.device)
         rv = tensors.pop("rand_vec", None)
+        if rv is None:
+            # One process's basis for the chunk (hex_basis of its
+            # sub-chunks' size, for each), edge-padded as the rays.
+            rv = eval_step.basis(-(-n // sub)).repeat(sub, 1)[:n]
+            rv = torch.cat([rv, rv[-1:].expand(pad, 3)])[lo:hi]
         out = eval_step(tensors, train_frac, eval_camidx, rv)
+        if world > 1:
+            out = meshlib.all_gather_rays(out, hi - lo, group)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         if pad:
             out = {k: v[:-pad] for k, v in out.items()}
