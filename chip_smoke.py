@@ -54,7 +54,24 @@ Phases:
      same initial parameters, a fresh Adam state, the same batch and one
      generator seed; every parameter, every Adam moment and the losses
      bitwise equal;
-  8a. data-parallel phase (``parallel/mesh.py``), each rank a process of
+  8a. flagship phase: the JAX package's flagship preset
+     ``configs.waymo_tpu()`` (single-query hex lookups: one per sample at
+     the mean of its 6 hex points; 15 microbatches of 1000 rays) from the
+     render phase's weights: the two views rendered as in phase 4 (16
+     ``take_wsum_cm`` a chunk, no ``take_cm``; bitwise again; a 64-ray chunk
+     against the CPU); K4 held and timed on a single-query render chunk's
+     proposal and NeRF level indices; a 64-ray microbatch's losses and
+     gradients on the card against the CPU and float64, unkeyed and keyed;
+     K1's and K3's fused entries and K2 held and timed on one 1000-ray
+     microbatch's f32 backward; one warm-up and 5 timed f32 steps (a step:
+     240 ``take_wsum_cm``, 30 fused K1, 30 K2, 60 run starts) and 2 bf16
+     steps (30 fused K3 in K1's place; the first step's table gradients
+     within 1 % relative L2 of the f32 ones) on the training batch; 3 f32
+     steps at 10 microbatches beside the preset's 15; the repeatability
+     check for each backward; the roofline scoreboard
+     (``utils/roofline.py``) of the renders and f32 steps of ``waymo()``
+     and ``waymo_tpu()``;
+  8b. data-parallel phase (``parallel/mesh.py``), each rank a process of
      its own (this script with ``--dp-worker``), every rank on the one card:
      a group of one over NCCL, whose 2 keyed f32 steps must equal the same
      steps without a group bitwise (the all-reduce timed by CUDA events);
@@ -72,7 +89,7 @@ Phases:
      steps with a test render and a checkpoint, a resume to 12: one log,
      one checkpoint set) and ``cli.eval`` of its checkpoint at two ranks
      against one process (PSNR and SSIM of 2 views, view 0's 8-bit image);
-  8b. camera-refinement phase: ``configs.waymo()`` with
+  8c. camera-refinement phase: ``configs.waymo()`` with
      ``optimize_cameras`` and ``contract_origin_grads`` from the same
      initial weights and batch (each ray's view its physical camera), the
      se(3) deltas at 0: one warm-up (the deltas' gradient finite and
@@ -83,7 +100,7 @@ Phases:
      beside ``index_select``, and the weights' gradient einsum timed; a
      64-ray microbatch's gradients, the deltas included, against the CPU;
      two runs of 2 steps bitwise equal;
-  8c. normals phase: ``configs.waymo()`` with density and predicted
+  8d. normals phase: ``configs.waymo()`` with density and predicted
      normals on both fields, ``contract_origin_grads`` and the ref-NeRF
      weights of the orientation and predicted-normal losses (the preset's
      learning-rate delay kept), from the same initial weights and batch: a
@@ -102,14 +119,14 @@ Phases:
      as the gradients are, two runs of 2 steps bitwise equal, and the
      double backward's ``take_wsum_cm`` and fused K1 held against their
      plain versions and timed on one microbatch's real inputs;
-  8d. options phase: ``configs.waymo()`` with bf16 field matmuls, scale
+  8e. options phase: ``configs.waymo()`` with bf16 field matmuls, scale
      featurization, density and bottleneck noise, a random background and
      the interlevel loss (exercise values, no published preset; the
      preset's learning-rate delay kept): the float64 check (its keyed pass
      carries the noise and background draws), 3 timed steps (launches as
      the f32 phase), two runs of 2 steps bitwise equal (the interlevel
      loss's ``inner_outer`` backward included), and the bf16 layer timed beside the f32 one;
-  8e. encoder check: ``hashgrid.encode`` forward and table gradient at
+  8f. encoder check: ``hashgrid.encode`` forward and table gradient at
      2^20 points through the canonical 10-level NeRF grid against float64
      plain versions, with its launches (10 ``take_cm``, K1's plain entry
      once: its one caller); K1's plain entry held bitwise across launches
@@ -185,8 +202,6 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peak DRAM bandwidth (bytes/s) for the bound.
-HBM_BYTES_PER_S = 3.35e12
 # One proposal level of a 15000-ray chunk: 128 samples x 6 hex x 8 corners.
 CHUNK = 15000
 PROP_M = CHUNK * 128 * 6 * 8
@@ -236,6 +251,9 @@ DP_EVAL_VIEWS = 2
 DP_METRIC_RTOL = 1e-3
 # The camera-refinement phase: timed steps after its warm-up.
 CAM_STEPS = 3
+# The flagship phase: f32 steps timed at 10 microbatches beside the
+# preset's 15 (a measurement; the preset is unchanged).
+M10_STEPS = 3
 # K5 is held at the chunk counts the JAX package's record names: unchunked,
 # and its best configuration.
 K5_CHUNKS = (1, 24)
@@ -279,6 +297,13 @@ POS_ERR = 2e-6
 
 def table_atol_frac(spec):
     return max(3 * max(spec.cuda_resolutions) * POS_ERR, 2.0**-7)
+
+
+def bound_ms(nbytes):
+    """The ms that nbytes take at the card's peak HBM rate
+    (``utils/roofline.py``'s ``PEAK_BW``, the H100 SXM's 3.35 TB/s)."""
+    from ucnerf_tpu_torch.utils import roofline
+    return nbytes / roofline.PEAK_BW * 1e3
 
 
 def check(cond, msg):
@@ -357,8 +382,7 @@ def k4_times(torch, gather, table, idx, w):
     c = table.shape[0]
     flat = idx.reshape(-1)
     m, n = flat.numel(), idx.shape[1]
-    touched = int(torch.unique(flat[(flat >= 0)
-                                    & (flat < table.shape[1])]).numel())
+    touched = gather.rows_touched(table, flat)
     take = {
         "M": m, "rows": table.shape[1], "rows_touched": touched,
         "ms": time_ms(lambda: gather.take_cm(table, flat), torch),
@@ -366,8 +390,7 @@ def k4_times(torch, gather, table, idx, w):
         "plain_ms": time_ms(lambda: gather.take_cm_plain(table, flat), torch),
         "library_ms": time_ms(lambda: torch.index_select(table, 1, flat),
                               torch),
-        "bound_ms": (4 * m + 4 * c * m + 4 * c * touched)
-        / HBM_BYTES_PER_S * 1e3}
+        "bound_ms": bound_ms(gather.take_cm_bytes(c, m, touched))}
     wsum = {
         "N": n, "rows": table.shape[1], "rows_touched": touched,
         "ms": time_ms(lambda: gather.take_wsum_cm(table, idx, w), torch),
@@ -375,8 +398,7 @@ def k4_times(torch, gather, table, idx, w):
                             torch),
         "library_ms": time_ms(lambda: wsum_library(torch, table, idx, w),
                               torch),
-        "bound_ms": (8 * (4 + 4) * n + 4 * c * n + 4 * c * touched)
-        / HBM_BYTES_PER_S * 1e3}
+        "bound_ms": bound_ms(gather.take_wsum_cm_bytes(c, n, touched))}
     return take, wsum
 
 
@@ -631,8 +653,8 @@ def scatter_phase(torch, scatter, hashgrid, configs):
                 values, idx, hashed_rows, out), torch),
             "library_ms": time_ms(lambda: out.zero_().index_add_(
                 1, idx64, values), torch),
-            "bound_ms": (m * (8 + 4 * c) + (hashed_rows + 1) * 4
-                         + hashed_rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound_ms(scatter.segment_sum_bytes(m, c,
+                                                           hashed_rows)),
             "max_abs_err": err}
         # K1's fused entry on the same keys, as the f32 step launches it:
         # per-level feature grads and corner weights in [0, 1).
@@ -684,9 +706,9 @@ def scatter_phase(torch, scatter, hashgrid, configs):
                 values, idx, hashed_rows, out), torch),
             "library_ms": time_ms(lambda: out.zero_().index_add_(
                 1, idx64, rounded), torch),
-            "bound_ms": (m * (8 + 2 * c) + (hashed_rows + 1) * 4
-                         + hashed_rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
-            "pack_bound_ms": m * (4 * c + 2 * c) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound_ms(scatter.packed_sum_bytes(m, c,
+                                                          hashed_rows)),
+            "pack_bound_ms": bound_ms(m * (4 * c + 2 * c)),
             "max_abs_err": errp}
         del rounded, packed
         if name == "nerf":
@@ -786,8 +808,7 @@ def wsum_packed_call(torch, scatter, label, g, w, keys, rows, fused_k1_ms):
           f"{label}: differs from K3 on the torch-formed, rounded updates")
     keys64 = keys.long()
     words = m * c // 2
-    bound = (m * (8 + 4) + levels * n * 4 * c + (rows + 1) * 4
-             + rows * 4 * c) / HBM_BYTES_PER_S * 1e3
+    bound = bound_ms(scatter.wsum_sum_bytes(m, levels, n, c, rows))
     rec = {"M": m, "rows": rows,
            "ms": time_ms(lambda: scatter.wsum_packed_sum_cm(
                g, w, perm, starts, out), torch),
@@ -807,8 +828,7 @@ def wsum_packed_call(torch, scatter, label, g, w, keys, rows, fused_k1_ms):
            # The same inputs and output as K1's fused entry.
            "bound_ms": bound,
            # Plus the records' round trip: written and read once.
-           "bound_with_records_ms": bound
-           + 2 * words * 4 / HBM_BYTES_PER_S * 1e3,
+           "bound_with_records_ms": bound + bound_ms(2 * words * 4),
            "max_abs_err": err}
     del formed, packed, rounded, keys64
     return rec
@@ -868,8 +888,7 @@ def dense_call(torch, scatter, label, g, fr, base, level_offsets, strides,
             g, fr, base, rows, out=out, **kw), torch),
         "library_ms": time_ms(lambda: out.zero_().index_add_(
             1, idx8, vals8), torch),
-        "bound_ms": (md * (8 + 12 + 4 * c) + (rows + 1) * 4
-                     + rows * 4 * c) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bound_ms(scatter.dense_sum_bytes(md, c, rows)),
         "max_abs_err": err,
         "walks": walk_stats(torch, dense_walks(torch, starts, level_offsets,
                                                strides),
@@ -913,9 +932,7 @@ def wsum_times(torch, scatter, g, w, keys, perm, starts, out):
             g, w, keys, rows, out), torch),
         "library_ms": time_ms(lambda: out.zero_().index_add_(1, keys64,
                                                              formed), torch),
-        # perm and weight per update, the grads once, run starts, output.
-        "bound_ms": (m * (8 + 4) + levels * n * 4 * c + (rows + 1) * 4
-                     + rows * 4 * c) / HBM_BYTES_PER_S * 1e3}
+        "bound_ms": bound_ms(scatter.wsum_sum_bytes(m, levels, n, c, rows))}
     del formed, keys64
     return rec
 
@@ -1022,8 +1039,7 @@ def chunked_phase(torch, scatter, values, idx, rows, perm, starts, k1_call):
                                torch),
             "k1_ms": k1_call["ms"], "k1_prep_ms": k1_call["prep_ms"],
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": (m * (4 + 8 + 4 * c) + rows * 4 * c)
-            / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound_ms(scatter.chunked_sum_bytes(m, c, rows)),
             "max_abs_err": err, "max_abs_diff_from_k1": float(diff.max())}
         calls.append(rec)
         print(f"[kernel] K5 G={chunks} M={m} rows={rows}: {rec['ms']:.4f} ms "
@@ -1077,8 +1093,17 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
                 # Zero-initialised leaves: random, so that every parameter
                 # shapes the render and gets a gradient.
                 p.normal_(0.0, 0.3, generator=gen)
-    eval_step = step.make_eval_step(model, cfg, seed=0)
     views = waymo_views(cameras, cfg)
+    res, eval_step = render_phase(torch, gather, scatter, step, cfg, model,
+                                  views, "waymo")
+    return res, eval_step, views, cfg, model
+
+
+def render_phase(torch, gather, scatter, step, cfg, model, views, label):
+    """The two views through ``render_image`` with the launches counted,
+    the first view again (bitwise equal) and a 64-ray chunk against the
+    same model on the CPU.  Returns the results and the eval step."""
+    eval_step = step.make_eval_step(model, cfg, seed=0)
     num_rays = [v["origins"].shape[0] * v["origins"].shape[1] for v in views]
     chunks = sum(-(-n // cfg.render_chunk_size) for n in num_rays)
 
@@ -1100,7 +1125,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     by_kernel = read_launches(gather, scatter)
-    check_fused_entry(gather, "render")
+    check_fused_entry(gather, f"render {label}")
     launches = by_kernel["K4"]
     peak = torch.cuda.max_memory_allocated()
     # A render is a function of the weights and the rays: the first view
@@ -1126,7 +1151,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
             check(out[k].shape == (VIEW_H, VIEW_W), f"{k} {out[k].shape}")
         for k, val in out.items():
             check(np.isfinite(val).all(), f"{k} has non-finite values")
-    print(f"[slice] waymo render {len(views)}x{VIEW_W}x{VIEW_H}, "
+    print(f"[slice] {label} render {len(views)}x{VIEW_W}x{VIEW_H}, "
           f"chunk {cfg.render_chunk_size}, "
           f"render_subchunks {cfg.render_subchunks}: "
           f"{[round(s, 3) for s in secs]} s, rays/s "
@@ -1159,7 +1184,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
         errs[k] = float(np.abs(a - b)[ok].max())
         check(np.allclose(a[ok], b[ok], rtol=RENDER_RTOL, atol=RENDER_ATOL),
               f"GPU vs CPU {k}: max abs err {errs[k]}")
-    print(f"[slice] 64-ray GPU vs CPU max abs err {errs} "
+    print(f"[slice] {label} 64-ray GPU vs CPU max abs err {errs} "
           f"(atol {RENDER_ATOL}, rtol {RENDER_RTOL})", flush=True)
     res = {"rays_per_s": [n / s for n, s in zip(num_rays, secs)],
            "seconds": secs, "chunks": chunks, "launches": by_kernel,
@@ -1167,7 +1192,7 @@ def slice_phase(torch, gather, scatter, configs, cameras, step):
            "render_subchunks": cfg.render_subchunks,
            "second_render_bitwise_equal": True,
            "gpu_vs_cpu_max_abs_err": errs}
-    return res, eval_step, views, cfg, model
+    return res, eval_step
 
 
 def record_k4_calls(torch, gather, hashgrid, run, entry="take_wsum_cm"):
@@ -1213,12 +1238,10 @@ def hold_k4(torch, gather, table, idx, w, gen, label, print_label):
     return take, wsum
 
 
-def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
-                     k4):
+def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg):
     """K4's two entry points on the corner indices and weights of one render
     chunk: those of the proposal level and of the NeRF level with the most
-    rows touched.  Recorded from the encoder's own calls.  Then the
-    interleave of each grid's table, level by level and in one pass."""
+    rows touched.  Recorded from the encoder's own calls."""
     batch = {k: torch.from_numpy(np.array(
         v.reshape((-1,) + v.shape[2:])[:cfg.render_chunk_size])).cuda()
         for k, v in view.items()}
@@ -1236,11 +1259,14 @@ def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
         take, wsum = hold_k4(torch, gather, *most_rows(torch, by_n[n]), gen,
                              f"{grid} level", f"real {grid} level")
         calls.append({"grid": grid, "take_cm": take, "take_wsum_cm": wsum})
-    k4["real_indices"] = calls
-    # What the other placement of the interleave would cost: the wrappers
-    # interleave a level's slice on every launch; once per encode would be
-    # one pass over the whole table, handed to the level launches.
-    k4["interleave_per_encode"] = []
+    return calls
+
+
+def interleave_times(torch, gather, model):
+    """What the other placement of the interleave would cost: the wrappers
+    interleave a level's slice on every launch; once per encode would be
+    one pass over the whole table, handed to the level launches."""
+    res = []
     for name, module in model.named_modules():
         if not hasattr(module, "grid_spec"):
             continue
@@ -1255,11 +1281,12 @@ def real_index_phase(torch, gather, hashgrid, eval_step, view, cfg, model,
               f"{rec['per_level_ms']:.4f} ms as {rec['levels']} level "
               f"slices, {rec['whole_table_ms']:.4f} ms as one pass",
               flush=True)
-        k4["interleave_per_encode"].append(rec)
+        res.append(rec)
+    return res
 
 
 def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
-                      batch, k1, k2, k3):
+                      batch):
     """K1's fused entry, K3's fused entry and K2 on what the f32 backward of
     one training microbatch hands them, for each grid: the feature grads,
     corner weights and keys of the hashed levels (K3's fused entry takes the
@@ -1329,8 +1356,7 @@ def real_stream_phase(torch, scatter, hashgrid, losses_lib, model, cfg,
         res["K2"].append(rec)
         del g, fr, base
     torch.cuda.empty_cache()
-    k1["real_stream"], k2["real_stream"] = res["K1"], res["K2"]
-    k3["real_stream"] = res["K3"]
+    return res
 
 
 def train_batch(views, cfg, n, seed):
@@ -1486,7 +1512,7 @@ def with_bf16_backward(cfg):
     return with_mlps(cfg, grid_bwd_value_dtype="bfloat16")
 
 
-def compare_first_grads(f32_grads, bf16_grads, hashed_from):
+def compare_first_grads(f32_grads, bf16_grads, hashed_from, label="bf16"):
     """The bf16 backward's first-step table gradients against the f32
     backward's, from the same initial state and the same draws: over the
     whole table, and over the hashed levels alone (rows from
@@ -1509,7 +1535,7 @@ def compare_first_grads(f32_grads, bf16_grads, hashed_from):
               f"bf16 backward: {name} hashed levels bitwise equal to the "
               f"f32 backward's, so nothing was rounded")
         rel[name]["dense_levels_bitwise_equal"] = dense_equal
-    print(f"[train bf16] first-step table gradients vs the f32 backward: "
+    print(f"[train {label}] first-step table gradients vs the f32 backward: "
           f"rel L2 {rel} (limit {BF16_GRAD_REL_L2})", flush=True)
     return rel
 
@@ -1575,6 +1601,121 @@ def repeat_phase(torch, step, state_lib, cfgs, initial, batch):
     return res
 
 
+def step_roofline(torch, roofline, state_lib, cfg, model, batch, train_res,
+                  label):
+    """The roofline scoreboard of a timed f32 training path: its FLOPs and
+    bytes counted by op on one microbatch (``roofline.train_step_cost``,
+    which steps the model once more), over the median step time."""
+    state = state_lib.create_train_state(cfg, model)
+    flops, nbytes, kernels = roofline.train_step_cost(cfg, model, state,
+                                                      batch)
+    want = {"take_wsum_cm", "scatter_add_dense_cm", "scatter_add_wsum_cm"}
+    check(set(kernels) == want, f"{label} roofline: kernels counted "
+          f"{sorted(kernels)}, expected {sorted(want)}")
+    dt = float(np.median(train_res["step_seconds"]))
+    res = dict(roofline.metrics(dt, flops, nbytes,
+                                roofline.gather_model(cfg)),
+               flops=flops, bytes=nbytes, kernel_bytes=kernels, seconds=dt)
+    print(f"[roofline] {label} step: {res}", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def render_roofline(torch, roofline, eval_step, view, cfg, render_res,
+                    label):
+    """The roofline scoreboard of a render: one chunk's FLOPs and bytes
+    counted by op, over the chunk's share of the measured render time."""
+    rays = cfg.render_chunk_size
+    batch = {k: torch.from_numpy(np.array(
+        v.reshape((-1,) + v.shape[2:])[:rays])).cuda()
+        for k, v in view.items()}
+    flops, nbytes, kernels = roofline.cost(lambda: eval_step(batch, 1.0, 0))
+    check(set(kernels) == {"take_wsum_cm"}, f"{label} roofline: kernels "
+          f"counted {sorted(kernels)}")
+    dt = rays / float(np.median(render_res["rays_per_s"]))
+    res = dict(roofline.metrics(dt, flops, nbytes,
+                                roofline.gather_model(cfg, rays)),
+               flops=flops, bytes=nbytes, kernel_bytes=kernels, seconds=dt,
+               rays=rays)
+    print(f"[roofline] {label} render chunk: {res}", flush=True)
+    return res
+
+
+def flagship_phase(torch, gather, scatter, hashgrid, step, state_lib,
+                   losses_lib, roofline, configs, views, initial, batch, k4,
+                   k1, k2, k3, profile=None):
+    """``configs.waymo_tpu()``, the JAX package's flagship preset, on the
+    card from the render phase's weights (``initial``) and the training
+    batch; the single-query figures go into the kernels' records."""
+    cfg = configs.waymo_tpu(lr_delay_steps=0)
+    model = step.init_model(cfg, seed=0, device="cuda")
+    model.load_state_dict(initial, strict=True)
+    res = {}
+    res["render"], eval_step = render_phase(
+        torch, gather, scatter, step, cfg, model, views, "waymo_tpu")
+    check(res["render"]["launches_per_chunk"] == 16,
+          f"waymo_tpu render: {res['render']['launches_per_chunk']} K4 "
+          f"launches a chunk, expected 16")
+    k4["real_indices_single_query"] = real_index_phase(
+        torch, gather, hashgrid, eval_step, views[0], cfg)
+    res["render"]["roofline"] = render_roofline(
+        torch, roofline, eval_step, views[0], cfg, res["render"],
+        "waymo_tpu")
+    del eval_step
+    torch.cuda.empty_cache()
+    res["grad_check"] = grad_check_f64(torch, losses_lib, model, cfg, batch,
+                                       "waymo_tpu grad")
+    streams = real_stream_phase(torch, scatter, hashgrid, losses_lib, model,
+                                cfg, batch)
+    for entry, key in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        entry["real_stream_single_query"] = streams[key]
+
+    res["train_f32"], f32_grads = train_phase(
+        torch, gather, scatter, step, state_lib, model, cfg, batch,
+        TRAIN_STEPS, "waymo_tpu f32")
+    res["train_f32"]["roofline"] = step_roofline(
+        torch, roofline, state_lib, cfg, model, batch, res["train_f32"],
+        "waymo_tpu f32")
+    if profile:
+        profile_train_step(torch, model, cfg, batch, step, state_lib, profile)
+    del model
+    torch.cuda.empty_cache()
+
+    bf16_cfg = with_bf16_backward(cfg)
+    bf16_model = step.init_model(bf16_cfg, seed=0, device="cuda")
+    bf16_model.load_state_dict(initial, strict=True)
+    res["train_bf16"], bf16_grads = train_phase(
+        torch, gather, scatter, step, state_lib, bf16_model, bf16_cfg, batch,
+        BF16_STEPS, "waymo_tpu bf16")
+    hashed_from = {
+        f"{name}.table": m.grid_spec.offsets[m.grid_spec.dense_prefix]
+        for name, m in bf16_model.named_modules() if hasattr(m, "grid_spec")}
+    res["train_bf16"]["first_step_table_grad_rel_l2"] = compare_first_grads(
+        f32_grads, bf16_grads, hashed_from, "waymo_tpu bf16")
+    del f32_grads, bf16_grads, bf16_model
+    torch.cuda.empty_cache()
+
+    # The v5e's choice of 15 microbatches against waymo()'s 10, on the card.
+    m10_cfg = dataclasses.replace(cfg, microbatches=10)
+    m10_model = step.init_model(m10_cfg, seed=0, device="cuda")
+    m10_model.load_state_dict(initial, strict=True)
+    res["train_f32_m10"], _ = train_phase(
+        torch, gather, scatter, step, state_lib, m10_model, m10_cfg, batch,
+        M10_STEPS, "waymo_tpu f32 m10")
+    del m10_model
+    torch.cuda.empty_cache()
+    print(f"[waymo_tpu] f32 train rays/s at 15 microbatches "
+          f"{res['train_f32']['rays_per_s']:.1f}, at 10 "
+          f"{res['train_f32_m10']['rays_per_s']:.1f}", flush=True)
+
+    res["repeat"] = repeat_phase(
+        torch, step, state_lib,
+        (("waymo_tpu f32", cfg), ("waymo_tpu bf16", bf16_cfg)), initial,
+        batch)
+    torch.cuda.empty_cache()
+    return res
+
+
 def cam_config(configs):
     """configs.waymo() with in-graph camera refinement: the se(3) deltas of
     its 3 physical cameras and, through contract_origin_grads, gradients to
@@ -1629,8 +1770,7 @@ def take_real_step(torch, gather, hashgrid, losses_lib, model, cfg, batch):
         check(torch.equal(got, gather.take_cm_plain(table, idx)),
               f"take_cm on the camera step's {grid} indices differs from "
               f"its plain version")
-        touched = int(torch.unique(flat[(flat >= 0)
-                                        & (flat < table.shape[1])]).numel())
+        touched = gather.rows_touched(table, flat)
         m = flat.numel()
         g = torch.randn((c, npts), generator=gen, device="cuda")
         rec = {"grid": grid, "M": m, "rows": table.shape[1],
@@ -1640,14 +1780,13 @@ def take_real_step(torch, gather, hashgrid, losses_lib, model, cfg, batch):
                                    torch),
                "library_ms": time_ms(
                    lambda: torch.index_select(table, 1, flat), torch),
-               "bound_ms": (4 * m + 4 * c * m + 4 * c * touched)
-               / HBM_BYTES_PER_S * 1e3,
+               "bound_ms": bound_ms(gather.take_cm_bytes(c, m, touched)),
                "d_w_einsum_ms": time_ms(
                    lambda: torch.einsum("chs,cs->hs", got, g), torch),
                # rows and feature grads read once, the weights' grad
                # written once.
-               "d_w_einsum_bound_ms": (4 * c * m + 4 * c * npts + 4 * m)
-               / HBM_BYTES_PER_S * 1e3,
+               "d_w_einsum_bound_ms": bound_ms(4 * c * m + 4 * c * npts
+                                               + 4 * m),
                "max_abs_err": 0.0}
         print(f"[cam] take_cm at a camera step's {grid} level M={m} "
               f"rows={rec['rows']} ({touched} touched): {rec['ms']:.4f} ms "
@@ -1764,6 +1903,24 @@ ENCODE_POINTS = 2**20
 # the NeRF field's density_hidden.bias is 1.56e-3 x max|grad| off on the
 # H100 and 5.6e-4 on the CPU.
 F64_FACTOR = 4.0
+# A ReLU kink: where a ReLU-fed unit's pre-activation lies within rounding
+# of 0, the card and float64 can put it on opposite sides, and the ReLU
+# passes that sample's gradient on one side only: that unit's weight row and
+# bias take the whole of the sample's contribution on one side and none on
+# the other (tests/test_torch_grad_draws.py shows the same between JAX and
+# the port).  The flagship's 64-ray microbatch has one past the tolerance (on
+# the H100: the NeRF field's lin_second_stage_1 unit 1, whose weight row and
+# bias were 1.9e-4 x max|grad| off, 2.4e-7 on the CPU).  So the CPU copies
+# take the card's branch there (replay_relu_branch): where a unit's
+# pre-activation has the other sign than the card's and both lie within
+# KINK_FRAC of the unit's largest |value| in the copy, the copy's
+# pre-activation is replaced by the card's, its gradient passing unchanged.
+# No tolerance grows; a unit may have at most KINK_CAP such samples in a
+# pass, and more fail the check.  The ReLU-fed layers of the fields, by the
+# last part of their names:
+RELU_FED = ("density_hidden", "lin_second_stage_")
+KINK_FRAC = 1e-4
+KINK_CAP = 2
 
 
 def with_mlps(cfg, **mlp):
@@ -1850,11 +2007,64 @@ def grad_check_f64(torch, losses_lib, model, cfg, batch, label):
     F64_FACTOR x the CPU's largest error of that tensor against float64,
     plus the camera phase's tolerance; and each hash table's gradient
     within F64_FACTOR x the CPU's relative L2 error against float64, plus
-    GRAD_ATOL_FRAC."""
+    GRAD_ATOL_FRAC.  Both CPU copies take the card's branch at the ReLU
+    kinks (replay_relu_branch), at most KINK_CAP samples a unit."""
     return {"unkeyed": grad_check_pass(torch, losses_lib, model, cfg, batch,
                                        label, keyed=False),
             "keyed": grad_check_pass(torch, losses_lib, model, cfg, batch,
                                      f"{label} keyed", keyed=True)}
+
+
+def relu_fed(model):
+    """The fields' ReLU-fed layers of `model`, by name."""
+    return [(name, module) for name, module in model.named_modules()
+            if name.rpartition(".")[2].startswith(RELU_FED)]
+
+
+def record_relu_pre(torch, model, record):
+    """Hooks that record each ReLU-fed layer's pre-activation, a call at a
+    time, in record[name] (float64, on the CPU)."""
+    def hook(name):
+        def forward(module, args, out):
+            record.setdefault(name, []).append(
+                out.detach().to("cpu", torch.float64))
+        return forward
+    return [module.register_forward_hook(hook(name))
+            for name, module in relu_fed(model)]
+
+
+def replay_relu_branch(torch, model, card, kinks):
+    """Hooks that put the copy `model` on the card's side of every ReLU
+    kink: where a ReLU-fed unit's pre-activation and the card's (card[name],
+    a call at a time, as record_relu_pre recorded them) have opposite signs
+    and both lie within KINK_FRAC of the unit's largest |value| in the copy,
+    the card's value replaces the copy's, the gradient passing unchanged.
+    kinks[name] counts the replaced samples by unit over the calls."""
+    calls = {}
+
+    def hook(name):
+        def forward(module, args, out):
+            i = calls[name] = calls.get(name, -1) + 1
+            check(i < len(card[name]),
+                  f"{name}: call {i + 1} on the copy, {len(card[name])} on "
+                  f"the card")
+            a = out.detach().reshape(out.shape[0], -1)
+            b = card[name][i].to(out.device, out.dtype)
+            check(b.numel() == a.numel(),
+                  f"{name} call {i}: pre-activation {tuple(out.shape)}, "
+                  f"{tuple(b.shape)} on the card")
+            b = b.reshape(a.shape)
+            near = torch.maximum(a.abs(), b.abs()) <= KINK_FRAC * a.abs().amax(
+                dim=1, keepdim=True)
+            flip = ((a > 0) != (b > 0)) & near
+            n = flip.sum(dim=1).cpu()
+            kinks[name] = n if name not in kinks else kinks[name] + n
+            if not bool(flip.any()):
+                return out
+            return out + torch.where(flip, b - a, 0).reshape(out.shape)
+        return forward
+    return [module.register_forward_hook(hook(name))
+            for name, module in relu_fed(model)]
 
 
 def grad_check_pass(torch, losses_lib, model, cfg, batch, label, keyed):
@@ -1864,10 +2074,13 @@ def grad_check_pass(torch, losses_lib, model, cfg, batch, label, keyed):
         np.random.default_rng(8).normal(size=(n, 3)).astype(np.float32))
     model.zero_grad(set_to_none=True)
     card = batch["origins"].device
-    results, draws = [], []
+    results, draws, pre, kinks = [], [], {}, {}
     for dev, dt in ((card, torch.float32), ("cpu", torch.float32),
                     ("cpu", torch.float64)):
         m = model if dev is card else copy.deepcopy(model).to(dev, dt)
+        hooks = (record_relu_pre(torch, m, pre) if dev is card else
+                 replay_relu_branch(torch, m, pre, kinks.setdefault(
+                     "cpu" if dt == torch.float32 else "float64", {})))
         b = {k: v.to(dev, dt) if v.is_floating_point() else v.to(dev)
              for k, v in part.items()}
         if keyed:
@@ -1881,6 +2094,8 @@ def grad_check_pass(torch, losses_lib, model, cfg, batch, label, keyed):
         total, losses, _ = losses_lib.compute_all_losses(b, renderings,
                                                          history, cfg)
         total.backward()
+        for h in hooks:
+            h.remove()
         results.append((dict({k: float(v.detach())
                               for k, v in losses.items()},
                              total=float(total.detach())),
@@ -1890,6 +2105,15 @@ def grad_check_pass(torch, losses_lib, model, cfg, batch, label, keyed):
         if m is not model:
             del m
     (loss_g, grad_g), (loss_c, grad_c), (loss_64, grad_64) = results
+    del pre
+    kinked = {pass_: {layer: {int(u): int(n[u])
+                              for u in torch.nonzero(n)[:, 0]}
+                      for layer, n in by_layer.items() if bool(n.any())}
+              for pass_, by_layer in kinks.items()}
+    over = {pass_: {layer: units for layer, units in by_layer.items()
+                    if max(units.values()) > KINK_CAP}
+            for pass_, by_layer in kinked.items()}
+    over = {k: v for k, v in over.items() if v}
     model.zero_grad(set_to_none=True)
     bad, worst, tables = [], {}, {}
     for k, exact in loss_64.items():
@@ -1930,14 +2154,18 @@ def grad_check_pass(torch, losses_lib, model, cfg, batch, label, keyed):
           f"density_hidden.weight table_atol_frac); tables' relative L2 "
           f"err card / CPU {tables} (limit {F64_FACTOR} x the CPU's + "
           f"{GRAD_ATOL_FRAC}); {len(draws)} shared draws; zero gradients "
-          f"{zero}", flush=True)
+          f"{zero}; ReLU kinks taken on the card's side (by pass, layer, "
+          f"unit: samples; at most {KINK_CAP} a unit) {kinked}", flush=True)
+    check(not over, f"{label}: more than {KINK_CAP} ReLU kinks in a unit "
+          f"against the card: {over}")
     check(not bad, f"{label}: card against float64 out of tolerance: {bad}")
     check(not zero, f"{label}: zero gradients: {zero}")
     return {"losses_card": loss_g, "losses_cpu": loss_c,
             "losses_float64": loss_64, "worst_grad": top,
             "worst_grad_err_frac_card": worst[top][0],
             "worst_grad_err_frac_cpu": worst[top][1],
-            "table_rel_l2_card_cpu": tables, "shared_draws": len(draws)}
+            "table_rel_l2_card_cpu": tables, "shared_draws": len(draws),
+            "relu_kinks": kinked}
 
 
 def record_double_backward(torch, gather, scatter, hashgrid, losses_lib,
@@ -2297,8 +2525,7 @@ def encode_check(torch, gather, scatter, hashgrid, configs, k1):
            "library_ms": time_ms(lambda: out.zero_().index_add_(
                1, idx64, values), torch),
            # values and keys read once, the table gradient written once.
-           "bound_ms": (4 * c * m + 4 * m + 4 * c * rows)
-           / HBM_BYTES_PER_S * 1e3,
+           "bound_ms": bound_ms(4 * c * m + 4 * m + 4 * c * rows),
            "bound_by": "bytes", "max_abs_err": grad_err,
            "feature_max_abs_err": feat_err, "launches": launches}
     print(f"[encode] hashgrid.encode at {ENCODE_POINTS} points x "
@@ -2748,7 +2975,8 @@ def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
     kind = ("bf16 backward" if cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
             else "camera refinement" if cfg.optimize_cameras
             else "normals" if not cfg.nerf_mlp.disable_density_normals
-            else "options" if cfg.nerf_mlp.compute_dtype else None)
+            else "options" if cfg.nerf_mlp.compute_dtype
+            else "waymo_tpu" if cfg.nerf_mlp.hex_single_query else None)
     # Kernels by the template argument or name that marks them: K1's fused
     # entry (its walks and the grads' interleave), K2 (walks and the two
     # record passes), K3 (the planar walk; the fused entry's walk and its
@@ -4221,11 +4449,12 @@ def main(argv=None):
                         help="run one rank of the data-parallel phase "
                              "(started by this script)")
     parser.add_argument("--profile-train", help="also profile one training "
-                        "step with each backward, one with camera "
-                        "refinement, one with normals and one with the "
-                        "options, and write the kernel tables here (f32) "
-                        "and beside it with '.bf16', '.cam', '.normals' and "
-                        "'.options' before the extension")
+                        "step with each backward, one of the flagship "
+                        "preset, one with camera refinement, one with "
+                        "normals and one with the options, and write the "
+                        "kernel tables here (f32) and beside it with "
+                        "'.bf16', '.tpu', '.cam', '.normals' and '.options' "
+                        "before the extension")
     args = parser.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
@@ -4240,11 +4469,16 @@ def main(argv=None):
     from ucnerf_tpu_torch.train import losses as losses_lib
     from ucnerf_tpu_torch.train import state as state_lib
     from ucnerf_tpu_torch.train import step
+    from ucnerf_tpu_torch.utils import roofline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     print(f"[gpu] {card}", flush=True)
+    print(f"[peaks] H100 SXM5 80 GB datasheet at 700 W (utils/roofline.py): "
+          f"bf16 dense {roofline.PEAK_FLOPS:.4g} FLOP/s, float32 "
+          f"{roofline.PEAK_FLOPS_F32:.4g} FLOP/s, HBM "
+          f"{roofline.PEAK_BW:.4g} B/s; this card: {card}", flush=True)
     print(f"[versions] python {sys.version.split()[0]} torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -4257,8 +4491,11 @@ def main(argv=None):
     k1, k2, k3, k5 = scatter_phase(torch, scatter, hashgrid, configs)
     slice_res, eval_step, views, cfg, model = slice_phase(
         torch, gather, scatter, configs, cameras, step)
-    real_index_phase(torch, gather, hashgrid, eval_step, views[0], cfg, model,
-                     k4)
+    k4["real_indices"] = real_index_phase(torch, gather, hashgrid, eval_step,
+                                          views[0], cfg)
+    k4["interleave_per_encode"] = interleave_times(torch, gather, model)
+    slice_res["roofline"] = render_roofline(torch, roofline, eval_step,
+                                            views[0], cfg, slice_res, "waymo")
     if args.profile:
         profile_chunk(torch, eval_step, views[0], cfg, args.profile)
     del eval_step
@@ -4266,12 +4503,17 @@ def main(argv=None):
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              train_batch(views, train_cfg, TRAIN_RAYS, seed=4).items()}
     grad_res = grad_check_phase(torch, losses_lib, model, train_cfg, batch)
-    real_stream_phase(torch, scatter, hashgrid, losses_lib, model, train_cfg,
-                      batch, k1, k2, k3)
+    streams = real_stream_phase(torch, scatter, hashgrid, losses_lib, model,
+                                train_cfg, batch)
+    k1["real_stream"], k2["real_stream"] = streams["K1"], streams["K2"]
+    k3["real_stream"] = streams["K3"]
     initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     train_res, f32_grads = train_phase(
         torch, gather, scatter, step, state_lib, model, train_cfg, batch,
         TRAIN_STEPS, "f32")
+    train_res["roofline"] = step_roofline(torch, roofline, state_lib,
+                                          train_cfg, model, batch, train_res,
+                                          "waymo f32")
     if args.profile_train:
         profile_train_step(torch, model, train_cfg, batch, step, state_lib,
                            args.profile_train)
@@ -4300,6 +4542,11 @@ def main(argv=None):
                               (("f32", train_cfg), ("bf16", bf16_cfg)),
                               initial, batch)
     torch.cuda.empty_cache()
+    tpu_res = flagship_phase(
+        torch, gather, scatter, hashgrid, step, state_lib, losses_lib,
+        roofline, configs, views, initial, batch, k4, k1, k2, k3,
+        profile="{0}.tpu{1}".format(*os.path.splitext(args.profile_train))
+        if args.profile_train else None)
     dp_res, dp_paths = dp_phase(torch, gather, scatter, configs, step,
                                 state_lib, train_cfg, initial, batch)
     # Every K4 launch of the data-parallel paths (rank 0's) is the fused
@@ -4396,6 +4643,10 @@ def main(argv=None):
     paths = {"render": slice_res["launches"],
              "train_f32": train_res["launches"],
              "train_bf16": bf16_res["launches"],
+             "render_waymo_tpu": tpu_res["render"]["launches"],
+             "train_waymo_tpu_f32": tpu_res["train_f32"]["launches"],
+             "train_waymo_tpu_bf16": tpu_res["train_bf16"]["launches"],
+             "train_waymo_tpu_f32_m10": tpu_res["train_f32_m10"]["launches"],
              "train_cam": cam_res["launches"],
              "train_normals": norm_res["launches"],
              "render_normals": norm_res["render"]["launches"],
@@ -4467,6 +4718,14 @@ def main(argv=None):
         entry["launches_per_step"] = train_res["launches_per_step"][key]
         entry["launches_per_camera_step"] = cam_res["launches_per_step"][key]
     k3["launches_per_step"] = bf16_res["launches_per_step"]["K3"]
+    # The flagship's step (15 microbatches) and render chunk.
+    for entry, key, label in ((k4, "K4", "train_f32"), (k1, "K1", "train_f32"),
+                              (k2, "K2", "train_f32"),
+                              (k3, "K3", "train_bf16")):
+        entry["launches_per_waymo_tpu_step"] = \
+            tpu_res[label]["launches_per_step"][key]
+    k4["launches_per_waymo_tpu_chunk"] = \
+        tpu_res["render"]["launches_per_chunk"]
     # Per rank of the two-rank data-parallel step (7500 rays a rank).
     dp_step = {label: dp_res["gloo_world2"][label]["launches_per_step_rank0"]
                for label in ("f32", "bf16")}
@@ -4492,7 +4751,8 @@ def main(argv=None):
                        "render": slice_res, "train": train_res,
                        "train_bf16": bf16_res, "train_cam": cam_res,
                        "train_normals": norm_res, "train_options": opt_res,
-                       "repeat": repeat_res, "dp": dp_res, "cli": cli_res,
+                       "repeat": repeat_res, "waymo_tpu": tpu_res,
+                       "dp": dp_res, "cli": cli_res,
                        "serve": serve_res, "grad_check": grad_res,
                        "mvs": mvs_res, "pose": pose_res}, f, indent=1)
     print(card)

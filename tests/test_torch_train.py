@@ -78,7 +78,8 @@ def _train_config(lib, value_dtype=None, mlp_over=None, **over):
     `mlp_over` other fields of both MLP configs."""
     cfg = lib.tiny(**over)
     mlp = dict(grid_log2_hashmap_size=16, grid_bwd_dense_sample=True,
-               grid_bwd_value_dtype=value_dtype, **(mlp_over or {}))
+               grid_bwd_value_dtype=value_dtype)
+    mlp.update(mlp_over or {})
     return dataclasses.replace(
         cfg, nerf_mlp=dataclasses.replace(cfg.nerf_mlp, **mlp),
         prop_mlp=dataclasses.replace(cfg.prop_mlp, **mlp))
@@ -98,11 +99,11 @@ def _randomize(params, rng):
     return jax.tree_util.tree_map_with_path(fill, params)
 
 
-def _batch(cfg, rng):
+def _batch(cfg, rng, rays=RAYS):
     """dummy_batch with varied targets (colours and sky pixels)."""
-    b = tstep.dummy_batch(cfg, RAYS)
-    b["rgb"] = rng.uniform(0, 1, (RAYS, 3)).astype(np.float32)
-    b["sky_segs"] = (rng.uniform(size=RAYS) < 0.3).astype(np.float32)
+    b = tstep.dummy_batch(cfg, rays)
+    b["rgb"] = rng.uniform(0, 1, (rays, 3)).astype(np.float32)
+    b["sky_segs"] = (rng.uniform(size=rays) < 0.3).astype(np.float32)
     return b
 
 
@@ -286,48 +287,72 @@ def test_bf16_train_step_matches_jax(step_case, step_case_bf16):
                 err_msg=name)
 
 
+def check_eval_ignores_knobs(case, cfgs, monkeypatch):
+    """Models of `cfgs`, which differ in backward knobs alone, render the
+    case's batch under no_grad without reaching any scatter, and bitwise
+    alike."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a scatter ran in the eval step")
+    for name in ("scatter_add_cm", "scatter_add_wsum_cm",
+                 "scatter_add_dense_cm", "scatter_add_packed_cm",
+                 "scatter_add_wsum_packed_cm"):
+        monkeypatch.setattr(thash.scatter, name, boom)
+    outs = []
+    for cfg in cfgs:
+        model = tstep.init_model(cfg, seed=0, device="cpu")
+        model.load_state_dict(convert.params_from_jax(
+            jax.tree.map(np.asarray, case["params"])), strict=True)
+        batch = {k: _t(v) for k, v in case["batch"].items()}
+        outs.append(tstep.make_eval_step(model, cfg)(
+            batch, 1.0, 0, _t(case["rand_vec"])))
+    for out in outs[1:]:
+        for k, v in outs[0].items():
+            assert torch.isfinite(v).all(), k
+            assert torch.equal(v, out[k]), k
+
+
 def test_eval_step_ignores_the_backward_knobs(step_case_bf16, monkeypatch):
     """A model built with the bf16 backward renders under no_grad without
     reaching any scatter, and as the f32-backward model renders."""
-    def boom(*args, **kwargs):
-        raise AssertionError("a scatter ran in the eval step")
-    for name in ("scatter_add_cm", "scatter_add_dense_cm",
-                 "scatter_add_packed_cm"):
-        monkeypatch.setattr(thash.scatter, name, boom)
-    outs = []
-    for value_dtype in ("bfloat16", None):
-        cfg = _train_config(tconfigs, value_dtype)
-        model = tstep.init_model(cfg, seed=0, device="cpu")
-        model.load_state_dict(convert.params_from_jax(
-            jax.tree.map(np.asarray, step_case_bf16["params"])), strict=True)
-        batch = {k: _t(v) for k, v in step_case_bf16["batch"].items()}
-        outs.append(tstep.make_eval_step(model, cfg)(
-            batch, 1.0, 0, _t(step_case_bf16["rand_vec"])))
-    for k, v in outs[0].items():
-        assert torch.isfinite(v).all(), k
-        assert torch.equal(v, outs[1][k]), k
+    check_eval_ignores_knobs(
+        step_case_bf16, [_train_config(tconfigs, value_dtype)
+                         for value_dtype in ("bfloat16", None)], monkeypatch)
+
+
+def port_step(cfg, params, batch, rand_vec, microbatches):
+    """The port's step of `cfg` at `microbatches` from the JAX `params`:
+    (gradients by JAX leaf name, total loss)."""
+    cfg = dataclasses.replace(cfg, microbatches=microbatches)
+    model = tstep.init_model(cfg, seed=0, device="cpu")
+    model.load_state_dict(convert.params_from_jax(
+        jax.tree.map(np.asarray, params)), strict=True)
+    state = tstate.create_train_state(cfg, model)
+    tb = {k: _t(v) for k, v in batch.items()}
+    new_state, stats = tstep.make_train_step(model, cfg)(
+        state, tb, 0.5, rand_vec=_t(rand_vec))
+    assert new_state.step == 1 and state.optimizer.count == 1
+    return (dict(_leaves(convert.params_to_jax(
+        {k: p.grad for k, p in model.named_parameters()}))),
+        float(stats["loss"]))
+
+
+def check_accumulated(got, want):
+    """A step's (gradients, loss) at several microbatches against one."""
+    for name, g in want[0].items():
+        np.testing.assert_allclose(got[0][name], g, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(g).max()),
+                                   err_msg=name)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
 
 
 def test_microbatches_accumulate_the_full_batch_gradient(step_case):
     """microbatches=2 gives the microbatches=1 gradient (every loss is a
     ray mean or independent of the rays)."""
-    cfg = dataclasses.replace(step_case["cfg"], microbatches=2)
-    model = tstep.init_model(cfg, seed=0, device="cpu")
-    model.load_state_dict(convert.params_from_jax(
-        jax.tree.map(np.asarray, step_case["params"])), strict=True)
-    state = tstate.create_train_state(cfg, model)
-    tb = {k: _t(v) for k, v in step_case["batch"].items()}
-    new_state, stats = tstep.make_train_step(model, cfg)(
-        state, tb, 0.5, rand_vec=_t(step_case["rand_vec"]))
-    assert new_state.step == 1 and state.optimizer.count == 1
-    got = dict(_leaves(convert.params_to_jax(
-        {k: p.grad for k, p in model.named_parameters()})))
-    for name, g in dict(_leaves(step_case["grads_t"])).items():
-        np.testing.assert_allclose(got[name], g, rtol=1e-5,
-                                   atol=1e-5 * float(np.abs(g).max()),
-                                   err_msg=name)
-    np.testing.assert_allclose(float(stats["loss"]),
-                               float(step_case["stats"]["loss"]), rtol=1e-5)
+    check_accumulated(
+        port_step(step_case["cfg"], step_case["params"], step_case["batch"],
+                  step_case["rand_vec"], 2),
+        (dict(_leaves(step_case["grads_t"])),
+         float(step_case["stats"]["loss"])))
 
 
 @pytest.mark.parametrize("clip", [False, True])

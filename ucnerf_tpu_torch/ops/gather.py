@@ -22,6 +22,10 @@ count in ``take_cm.launches`` / ``take_wsum_cm.launches``.  On a CPU tensor
 they run ``take_cm_plain`` / ``take_wsum_cm_plain``, the plain PyTorch
 versions, which the CPU tests compare against the JAX package.  There is no
 other route: a tensor on another device raises.
+
+``take_cm_bytes`` and ``take_wsum_cm_bytes`` are the kernels' byte models:
+the HBM bytes a launch must move, which bound its time
+(``utils/roofline.py``, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import ctypes
 import torch
 
 from ucnerf_tpu_torch.ops import build
+from ucnerf_tpu_torch.ops.traffic import kernel_bytes
 
 # The kernels take up to this many channels (``kMaxChannels`` in
 # csrc/gather.cu); 4 has the 16-byte path.
@@ -57,6 +62,27 @@ def take_wsum_cm_plain(table, idx, w, bf16: bool = False):
     with the weights and the sum over the corner axis, as three passes.
     table [C, rows], idx int [8, N], w [8, N] -> [C, N]."""
     return (take_cm_plain(table, idx, bf16) * w[None]).sum(dim=1)
+
+
+def rows_touched(table, idx) -> int:
+    """The distinct rows of table [C, rows] that idx reads (sentinels
+    excluded)."""
+    flat = idx.reshape(-1)
+    return int(torch.unique(flat[(flat >= 0) & (flat < table.shape[1])])
+               .numel())
+
+
+def take_cm_bytes(c: int, m: int, touched: int) -> int:
+    """Bytes of a ``take_cm`` launch: m int32 indices read, [C, m] float32
+    written, each of the `touched` rows read once."""
+    return 4 * m + 4 * c * m + 4 * c * touched
+
+
+def take_wsum_cm_bytes(c: int, n: int, touched: int) -> int:
+    """Bytes of a ``take_wsum_cm`` launch over n points: 8 int32 indices and
+    8 float32 weights a point read, [C, n] float32 written, each of the
+    `touched` rows read once."""
+    return 8 * (4 + 4) * n + 4 * c * n + 4 * c * touched
 
 
 def _bind(lib):
@@ -122,6 +148,8 @@ def interleave_cm(table):
     return image
 
 
+@kernel_bytes(lambda table, idx, bf16=False: take_cm_bytes(
+    table.shape[0], idx.numel(), rows_touched(table, idx)))
 def take_cm(table, idx, bf16: bool = False):
     """Gather columns of a [C, rows] float32 table at int32 indices idx [...].
 
@@ -157,6 +185,8 @@ def take_cm(table, idx, bf16: bool = False):
 take_cm.launches = 0
 
 
+@kernel_bytes(lambda table, idx, w, bf16=False: take_wsum_cm_bytes(
+    table.shape[0], idx.shape[1], rows_touched(table, idx)))
 def take_wsum_cm(table, idx, w, bf16: bool = False):
     """Gather the 8 corner rows of N points and sum them with their weights.
 

@@ -36,6 +36,11 @@ The Pallas kernels split each value into two bf16 parts for the MXU
 (relative error ~1e-5); the kernels here sum in f32.  K2 rounds the
 fractional coords to bf16 before it forms the corner weights, exactly as the
 Pallas kernel does (``scatter.py:619-622``).
+
+``segment_sum_bytes``, ``wsum_sum_bytes``, ``packed_sum_bytes``,
+``dense_sum_bytes`` and ``chunked_sum_bytes`` are the kernels' byte models:
+the HBM bytes a launch must move, which bound its time
+(``utils/roofline.py``, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import ctypes
 import torch
 
 from ucnerf_tpu_torch.ops import build
+from ucnerf_tpu_torch.ops.traffic import kernel_bytes
 
 # K5's runs longer than this go to the whole block (``kLong`` in
 # csrc/scatter_common.cuh).
@@ -55,6 +61,43 @@ LONG_RUN = 256
 # DenseWalk, for K2, whose walks count each sample at its 8 corners).
 RUN_TIERS = (32, 1024)
 DENSE_TIERS = (64, 2048)
+
+
+def segment_sum_bytes(m: int, c: int, rows: int) -> int:
+    """Bytes of a K1 launch on a prepared sort (``segment_sum_cm``): per
+    update its int64 position and C float32 values, the rows + 1 int32 run
+    starts, [C, rows] float32 written."""
+    return m * (8 + 4 * c) + (rows + 1) * 4 + rows * 4 * c
+
+
+def wsum_sum_bytes(m: int, levels: int, n: int, c: int, rows: int) -> int:
+    """Bytes of a launch of K1's or K3's fused entry (``wsum_sum_cm``,
+    ``wsum_packed_sum_cm``): per update its int64 position and float32
+    weight, the [L, C, N] feature grads once, the run starts, [C, rows]
+    float32 written."""
+    return (m * (8 + 4) + levels * n * 4 * c + (rows + 1) * 4
+            + rows * 4 * c)
+
+
+def packed_sum_bytes(m: int, c: int, rows: int) -> int:
+    """Bytes of a planar K3 launch (``packed_sum_cm``): per update its int64
+    position and C bf16 values, the run starts, [C, rows] float32
+    written."""
+    return m * (8 + 2 * c) + (rows + 1) * 4 + rows * 4 * c
+
+
+def dense_sum_bytes(m: int, c: int, rows: int) -> int:
+    """Bytes of a K2 launch (``dense_sum_cm``) over m samples: per sample
+    its int64 position, 3 float32 fracs and C float32 grads, the run
+    starts, [C, rows] float32 written."""
+    return m * (8 + 12 + 4 * c) + (rows + 1) * 4 + rows * 4 * c
+
+
+def chunked_sum_bytes(m: int, c: int, rows: int) -> int:
+    """Bytes of a K5 launch (``chunked_sum_cm``): per update its int32
+    sorted key, int64 position and C float32 values, [C, rows] float32
+    written."""
+    return m * (4 + 8 + 4 * c) + rows * 4 * c
 
 
 def _wsum_values(g, w):
@@ -276,6 +319,8 @@ def segment_sum_cm(values, perm, starts, out):
     return out
 
 
+@kernel_bytes(lambda values, idx, num_rows, out=None: segment_sum_bytes(
+    idx.numel(), values.shape[0], num_rows))
 def scatter_add_cm(values, idx, num_rows: int, out=None):
     """K1: deterministic ``out[:, idx[m]] += values[:, m]``.
 
@@ -378,6 +423,12 @@ def wsum_sum_cm(g, w, perm, starts, out):
     return out
 
 
+def _wsum_entry_bytes(g, w, keys, num_rows, out=None):
+    levels, c, n = g.shape
+    return wsum_sum_bytes(keys.numel(), levels, n, c, num_rows)
+
+
+@kernel_bytes(_wsum_entry_bytes)
 def scatter_add_wsum_cm(g, w, keys, num_rows: int, out=None):
     """K1's fused entry: K1 over the hash encoder's corner updates, with
     each update ``w[l, k, s] * g[l, :, s]`` formed inside the kernel.
@@ -446,6 +497,8 @@ def dense_sum_cm(gvals, fracs, perm, starts, level_offsets, strides, out):
     return out
 
 
+@kernel_bytes(lambda gvals, fracs, base_idx, num_rows, **kw: dense_sum_bytes(
+    base_idx.numel(), gvals.shape[0], num_rows))
 def scatter_add_dense_cm(gvals, fracs, base_idx, num_rows: int, *,
                          level_len: int, strides, level_offsets, out=None):
     """K2: the dense-level corner scatter at sample granularity.
@@ -536,6 +589,8 @@ def packed_sum_cm(packed, perm, starts, out):
     return out
 
 
+@kernel_bytes(lambda values, idx, num_rows, out=None: packed_sum_bytes(
+    idx.numel(), values.shape[0], num_rows))
 def scatter_add_packed_cm(values, idx, num_rows: int, *, out=None):
     """K3: K1's sum with each update value rounded once to bf16.
 
@@ -605,6 +660,7 @@ def wsum_packed_sum_cm(g, w, perm, starts, out):
     return out
 
 
+@kernel_bytes(_wsum_entry_bytes)
 def scatter_add_wsum_packed_cm(g, w, keys, num_rows: int, out=None):
     """K3's fused entry: K3 over the hash encoder's corner updates, with each
     update ``w[l, k, s] * g[l, :, s]`` formed, rounded once to bf16 and
@@ -685,6 +741,8 @@ def chunked_sum_cm(values, sorted_keys, perm, num_chunks: int, out):
     return out
 
 
+@kernel_bytes(lambda values, idx, num_rows, **kw: chunked_sum_bytes(
+    idx.numel(), values.shape[0], num_rows))
 def scatter_add_chunked_cm(values, idx, num_rows: int, *, num_chunks: int):
     """K5: deterministic scatter-add with chunk-local sorting.
 
