@@ -145,6 +145,21 @@ Phases:
      with faces); an extract density chunk and the mesh's vertex colors on
      the card against a CPU copy of the model; K4's two entry points held
      and timed on the corner indices one extract chunk hands a NeRF level;
+  10a. jax_import phase: checkpoints of the JAX package on the card.  The
+     committed fixture (tests/fixtures/, written by tests/torch_jax_fixture.py
+     with JAX on the CPU: the tiny preset's orbax state after 2 steps,
+     exported by tools/export_jax_checkpoint.py) imported by
+     ``cli.import_jax`` on the card, its 64 eval rays rendered through
+     ``make_eval_step`` (K4's fused entry) against JAX's CPU render, and one
+     f32 ``make_train_step`` (K1's fused entry, K2, K4) whose parameters and
+     Adam moments are held against JAX's next state, entry by entry, within
+     the bound the gradient tolerance gives through Adam; then the full-width
+     round trip of the CLI phase's step-40 checkpoint (87.3 M parameters):
+     ``convert.state_to_export``, ``cli.import_jax`` into a fresh folder,
+     every parameter, moment and count bitwise the source's, ``cli.eval`` of
+     both folders with bitwise-equal metrics, ``cli.train`` resumed for 2
+     steps from each (K3's fused entry, K2, K4) with bitwise-equal final
+     ``state.pt`` files; the export's size and seconds printed;
   11. MVS phase: the CER-MVS depth estimator's entry points in-process,
      ``cli.mvs_train`` and ``cli.mvs_depth``, with the launches of each
      counted from 0 (no hand-written kernel lies on either path): the tiny
@@ -2557,6 +2572,18 @@ def steady_windows(logged, start, render_every):
     return steady
 
 
+def cli_argv(exp):
+    """The CLI phase's flags (all but --max-steps), in folder `exp`."""
+    return ["--preset", "synthetic_quality",
+            "-b", 'NerfMLP.grid_bwd_value_dtype = "bfloat16"',
+            "-b", 'PropMLP.grid_bwd_value_dtype = "bfloat16"',
+            "-b", f"Config.exp_name = {exp!r}",
+            "-b", f"Config.print_every = {CLI_PRINT_EVERY}",
+            "-b", f"Config.train_render_every = {CLI_STEPS[0]}",
+            "-b", f"Config.checkpoint_every = {CLI_CHECKPOINT_EVERY}",
+            "-b", "Config.lr_delay_steps = 0"]
+
+
 def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
     """The training entry point in-process on the synthetic scene, with the
     bf16 backward: train, test render, checkpoints, then resume, in the
@@ -2565,14 +2592,7 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
     windows alone (`steady_windows`), and steps x batch_size over the
     seconds of each whole call, with its set-up, test render and saves."""
     first, second = CLI_STEPS
-    argv = ["--preset", "synthetic_quality",
-            "-b", 'NerfMLP.grid_bwd_value_dtype = "bfloat16"',
-            "-b", 'PropMLP.grid_bwd_value_dtype = "bfloat16"',
-            "-b", f"Config.exp_name = {exp!r}",
-            "-b", f"Config.print_every = {CLI_PRINT_EVERY}",
-            "-b", f"Config.train_render_every = {first}",
-            "-b", f"Config.checkpoint_every = {CLI_CHECKPOINT_EVERY}",
-            "-b", "Config.lr_delay_steps = 0"]
+    argv = cli_argv(exp)
     log_path = os.path.join(exp, "log_train.txt")
     microbatches, levels = 2, 16  # of the preset; 6 proposal + 10 NeRF levels
     results = []
@@ -2880,6 +2900,327 @@ def serving_phase(torch, gather, scatter, hashgrid, configs, step, exp, k4):
     del model, chunk_pts
     torch.cuda.empty_cache()
     return res, paths
+
+
+# The jax_import phase: checkpoints of the JAX package on the card.  The
+# fixture (tests/fixtures/, written by tests/torch_jax_fixture.py with JAX on
+# the CPU: a tiny-preset train state after 2 steps, its eval rays and JAX's
+# render of them, a training batch with JAX's gradient and next state) goes
+# through cli.import_jax; the full-width round trip starts from the CLI
+# phase's checkpoint.  The cli.train steps resumed from each folder of the
+# round trip:
+JAX_RESUME_STEPS = 2
+# The fixture's render and step against JAX's CPU values: the CPU tests'
+# tolerances (tests/test_torch_jax_checkpoint.py: the render rtol 1e-4,
+# atol 1e-5; gradients rtol 1e-4 with 1e-5 x max|grad|, 2e-5 for the
+# tables, plus F64_FACTOR x the port's own f32 error against float64 on the
+# step's batch) plus this script's card-vs-CPU headroom (RENDER_RTOL and
+# RENDER_ATOL; GRAD_RTOL with grad_atol_frac), the gradient tolerance
+# carried through the clips and Adam by torch_jax_fixture.adam_step_bound.
+JAX_RENDER_RTOL = 1e-4 + RENDER_RTOL
+JAX_RENDER_ATOL = 1e-5 + RENDER_ATOL
+JAX_GRAD_RTOL = 1e-4 + GRAD_RTOL
+JAX_GRAD_ATOL_FRAC = {"table": 2e-5, "other": 1e-5}
+
+
+def jax_fixture_module():
+    """tests/torch_jax_fixture.py: its paths and its numpy and torch
+    helpers (it imports numpy alone at its top; nothing here calls its JAX
+    functions)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_jax_fixture
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                            "ucnerf_tpu")]
+    check(not loaded, f"the JAX side was imported: {loaded}")
+    return torch_jax_fixture
+
+
+def port_name(key):
+    """An export path as the port's parameter name."""
+    *path, leaf = key.split("/")
+    return ".".join(path + ["weight" if leaf == "kernel" else leaf])
+
+
+def jax_fixture_phase(torch, gather, scatter, configs, step, state_lib,
+                      folder):
+    """The JAX fixture on the card: cli.import_jax with its default device
+    (nothing launched), then the fixture's 64 eval rays through
+    make_eval_step (K4's fused entry) against JAX's CPU render, and one f32
+    make_train_step on its training batch with generator=None and
+    microbatches=1 (K1's fused entry, K2, K4) whose parameters and Adam
+    moments are held entry by entry against JAX's next state within the
+    bound the gradient tolerance gives."""
+    from ucnerf_tpu_torch import convert
+    from ucnerf_tpu_torch.cli import import_jax
+    from ucnerf_tpu_torch.train import checkpoints as ckpt_lib
+
+    fx = jax_fixture_module()
+    with np.load(fx.EXPECT) as data:
+        expect = {k: data[k] for k in data.files}
+    before = convert.load_export(fx.EXPORT, "nerf")
+    bindings = [str(b) for b in expect["bindings"]]
+    exp = os.path.join(folder, "fixture")
+    argv = ["--tiny", "-b", f"Config.exp_name = {exp!r}"]
+    for b in bindings:
+        argv += ["-b", b]
+    reset_launches(gather, scatter)
+    t0 = time.perf_counter()
+    import_jax.main(argv + ["--export", fx.EXPORT])
+    import_secs = time.perf_counter() - t0
+    launches = read_launches(gather, scatter)
+    check(not any(launches.values()), f"import: launches {launches}")
+    cfg = configs.load_config("tiny", bindings)
+    check(cfg.microbatches == 1, "the fixture's step is one microbatch")
+    model = step.init_model(cfg, seed=0, device="cuda")
+    state, at = ckpt_lib.restore_checkpoint(
+        exp, state_lib.create_train_state(cfg, model))
+    check(at == fx.STEPS and state.optimizer.count == fx.STEPS
+          and state.step == fx.STEPS,
+          f"the imported fixture restores at step {at}")
+    res, paths = {"import_seconds": import_secs}, {}
+
+    def part(prefix):
+        return {k[len(prefix):]: torch.from_numpy(v).cuda()
+                for k, v in expect.items() if k.startswith(prefix)}
+
+    # The render: 64 rays with JAX's key=None hex basis.
+    reset_launches(gather, scatter)
+    with torch.no_grad():
+        out = step.make_eval_step(model, cfg)(
+            part("eval/batch/"), 1.0, 0,
+            torch.from_numpy(expect["eval/rand_vec"]).cuda())
+    torch.cuda.synchronize()
+    paths["jax_import_render"] = read_launches(gather, scatter)
+    check_fused_entry(gather, "jax fixture render")
+    errs = {}
+    for key, want in expect.items():
+        if key.startswith("eval/out/"):
+            name = key[len("eval/out/"):]
+            got = out[name].cpu().numpy()
+            errs[name] = float(np.abs(got - want).max())
+            check(np.allclose(got, want, rtol=JAX_RENDER_RTOL,
+                              atol=JAX_RENDER_ATOL),
+                  f"jax fixture render {name}: max abs err {errs[name]}")
+    res["render_max_abs_err"] = errs
+    n_params = sum(v.size for k, v in before.items()
+                   if k.startswith("params/"))
+    print(f"[jax_import] fixture ({n_params} parameters) imported in "
+          f"{import_secs:.2f} s; 64-ray render on the card vs JAX on the "
+          f"CPU: max abs err {errs} (rtol {JAX_RENDER_RTOL}, atol "
+          f"{JAX_RENDER_ATOL}); launches {paths['jax_import_render']}",
+          flush=True)
+
+    # One f32 step with generator=None on the training batch.
+    batch, rand_vec = part("train/batch/"), torch.from_numpy(
+        expect["train/rand_vec"])
+    f32_err = fx.f32_grad_error(model, cfg, batch, rand_vec)
+    modules = dict(model.named_modules())
+
+    def grad_tol(key, g):
+        kind = "table" if key.endswith("table") else "other"
+        frac = JAX_GRAD_ATOL_FRAC[kind] + grad_atol_frac(modules,
+                                                         port_name(key))
+        return (JAX_GRAD_RTOL * np.abs(g) + frac * np.abs(g).max()
+                + fx.F64_FACTOR * f32_err[key])
+
+    # The card takes JAX's side of every ReLU kink, as the CPU test does.
+    kinks = {}
+    hooks = fx.jax_relu_branch(model, expect, kinks)
+    reset_launches(gather, scatter)
+    new_state, _ = step.make_train_step(model, cfg)(
+        state, batch, float(expect["train_frac"]), rand_vec=rand_vec.cuda())
+    torch.cuda.synchronize()
+    launches = paths["jax_import_step"] = read_launches(gather, scatter)
+    for h in hooks:
+        h.remove()
+    for name, n in kinks.items():
+        check(int(n.max()) <= fx.KINK_CAP,
+              f"jax fixture step: {name} kinks by unit {n.tolist()}")
+    kinks = {name: int(n.sum()) for name, n in kinks.items()}
+    check_fused_entry(gather, "jax fixture step")
+    check(launches["K1_fused"] > 0 and launches["K1_plain"] == 0
+          and launches["K2"] > 0 and launches["K3"] == 0,
+          f"jax fixture step: launches {launches}")
+    got = convert.export_arrays(new_state)
+    after = {k[len("next/"):]: v for k, v in expect.items()
+             if k.startswith("next/")}
+    grads = {k[len("grads/"):]: v for k, v in expect.items()
+             if k.startswith("grads/")}
+    bound = fx.adam_step_bound(cfg, grads, grad_tol, before, after)
+    worst = {}
+    for key, b in bound.items():
+        err = np.abs(got[key].astype(np.float64) - after[key])
+        worst[key] = float((err / b).max())
+        check((err <= b).all(), f"jax fixture step {key}: "
+              f"{int((err > b).sum())} entries beyond the bound, max "
+              f"err/bound {worst[key]:.3g}")
+    for key in ("adam/count", "schedule/count", "step"):
+        check(int(got[key]) == int(after[key]),
+              f"jax fixture step {key}: {int(got[key])}, JAX "
+              f"{int(after[key])}")
+    top = max(worst, key=worst.get)
+    res.update(step_launches=launches, worst_err_over_bound=worst[top],
+               worst=top, kinks=kinks)
+    print(f"[jax_import] fixture step on the card vs JAX's next state: "
+          f"every parameter and moment within its bound, worst err/bound "
+          f"{worst[top]:.3g} ({top}); JAX's ReLU branch taken at {kinks} "
+          f"samples; step {int(got['step'])}; launches {launches}",
+          flush=True)
+    del model, state, new_state
+    return res, paths
+
+
+def load_state_file(torch, exp, at):
+    path = os.path.join(exp, "checkpoints", str(at), "state.pt")
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return torch.load(path, map_location="cpu", weights_only=True), digest
+
+
+def same_state(torch, a, b, learning_rates=True):
+    """Whether two loaded state.pt payloads hold bitwise-equal parameters,
+    Adam moments and counts, the step and the schedule's count (and the
+    param groups' learning rates)."""
+    if (a["step"], a["count"]) != (b["step"], b["count"]):
+        return False
+    if a["model"].keys() != b["model"].keys() or not all(
+            torch.equal(v, b["model"][k]) for k, v in a["model"].items()):
+        return False
+    sa, sb = a["adam"]["state"], b["adam"]["state"]
+    groups = [{k: v for k, v in g.items() if learning_rates or k != "lr"}
+              for g in a["adam"]["param_groups"]]
+    return (sa.keys() == sb.keys()
+            and all(sa[i].keys() == sb[i].keys() and all(
+                sa[i][k].dtype == sb[i][k].dtype
+                and torch.equal(sa[i][k], sb[i][k]) for k in sa[i])
+                for i in sa)
+            and groups == [{k: v for k, v in g.items()
+                            if learning_rates or k != "lr"}
+                           for g in b["adam"]["param_groups"]])
+
+
+def jax_roundtrip_phase(torch, gather, scatter, configs, step, state_lib,
+                        cli_train, src, folder):
+    """The full-width round trip on the CLI phase's last checkpoint in
+    `src` (synthetic_quality, the canonical architecture): its state written
+    by convert.state_to_export and imported by cli.import_jax into a fresh
+    folder, every parameter, moment and count bitwise the source's; cli.eval
+    of both folders with bitwise-equal metrics; cli.train resumed for
+    JAX_RESUME_STEPS steps from each (the bf16 backward: K3's fused entry,
+    K2, K4), the final state.pt files bitwise equal."""
+    from ucnerf_tpu_torch import convert
+    from ucnerf_tpu_torch.cli import eval as cli_eval
+    from ucnerf_tpu_torch.cli import import_jax
+    from ucnerf_tpu_torch.train import checkpoints as ckpt_lib
+
+    at = ckpt_lib.latest_checkpoint_step(src)
+    check(at == CLI_STEPS[-1], f"the CLI phase's last checkpoint is {at}")
+    argv = cli_argv(src)
+    cfg = configs.load_config(
+        "synthetic_quality", [v for k, v in zip(argv, argv[1:]) if k == "-b"])
+    model = step.init_model(cfg, seed=0, device="cuda")
+    state, _ = ckpt_lib.restore_checkpoint(
+        src, state_lib.create_train_state(cfg, model))
+    n_params = sum(p.numel() for p in model.parameters())
+    export = os.path.join(folder, "scene.npz")
+    t0 = time.perf_counter()
+    convert.state_to_export(state, export)
+    export_secs = time.perf_counter() - t0
+    size = os.path.getsize(export)
+    del model, state
+    torch.cuda.empty_cache()
+
+    imported = os.path.join(folder, "imported")
+    reset_launches(gather, scatter)
+    t0 = time.perf_counter()
+    import_jax.main(cli_argv(imported) + ["--export", export])
+    torch.cuda.synchronize()
+    import_secs = time.perf_counter() - t0
+    launches = read_launches(gather, scatter)
+    check(not any(launches.values()), f"import: launches {launches}")
+    os.remove(export)
+    a, _ = load_state_file(torch, src, at)
+    b, _ = load_state_file(torch, imported, at)
+    # The learning rate in the param groups is the schedule's at the last
+    # update, for the import's max_steps (the preset's; the CLI phase's
+    # --max-steps set the source's): the next update sets it anew.
+    check(same_state(torch, a, b, learning_rates=False),
+          "the imported checkpoint differs from its source")
+    del a, b
+    res = {"parameters": n_params, "export_bytes": size,
+           "export_seconds": export_secs, "import_seconds": import_secs}
+    print(f"[jax_import] full width: {n_params} parameters, export "
+          f"{size} bytes written in {export_secs:.2f} s, imported by "
+          f"cli.import_jax in {import_secs:.2f} s; every parameter, Adam "
+          f"moment and count bitwise the source's", flush=True)
+
+    paths, metrics, digests, payloads = {}, {}, {}, {}
+    for label, exp in (("source", src), ("imported", imported)):
+        secs, paths[f"jax_import_cli_eval_{label}"] = serving_cli(
+            torch, gather, scatter, f"jax_import cli eval {label}",
+            cli_eval.main, cli_argv(exp))
+        metrics[label] = {}
+        for key in ("psnr", "ssim", "psnr_cc", "ssim_cc"):
+            with open(os.path.join(exp, f"{key}_{at}.txt")) as f:
+                metrics[label][key] = f.read()
+        res[f"cli_eval_{label}_seconds"] = secs
+    check(metrics["source"] == metrics["imported"],
+          f"cli.eval metrics differ: {metrics}")
+    end = at + JAX_RESUME_STEPS
+    for label, exp in (("source", src), ("imported", imported)):
+        reset_launches(gather, scatter)
+        t0 = time.perf_counter()
+        cli_train.main(cli_argv(exp) + ["--max-steps", str(end)])
+        torch.cuda.synchronize()
+        res[f"resume_{label}_seconds"] = time.perf_counter() - t0
+        launches = paths[f"jax_import_cli_resume_{label}"] = read_launches(
+            gather, scatter)
+        check_fused_entry(gather, f"jax_import resume {label}")
+        with open(os.path.join(exp, "log_train.txt")) as f:
+            log = f.read()
+        micro = 2 * JAX_RESUME_STEPS  # 2 microbatches a step
+        check(f"resumed from step {at}" in log
+              and ckpt_lib.latest_checkpoint_step(exp) == end
+              and launches["K3_fused"] == launches["K3"] == 2 * micro
+              and launches["K2"] == 2 * micro and launches["K1"] == 0
+              and launches["K4"] == 16 * micro,
+              f"jax_import resume {label}: launches {launches}")
+        payloads[label], digests[label] = load_state_file(torch, exp, end)
+    check(same_state(torch, payloads["source"], payloads["imported"])
+          and digests["source"] == digests["imported"],
+          f"the resumed state.pt files differ: {digests}")
+    res.update(metrics=metrics["source"], resumed_sha256=digests["source"])
+    print(f"[jax_import] cli.eval of both folders: metrics bitwise equal "
+          f"(psnr {metrics['source']['psnr'].split()}), "
+          f"{res['cli_eval_source_seconds']:.2f} / "
+          f"{res['cli_eval_imported_seconds']:.2f} s; cli.train resumed "
+          f"{JAX_RESUME_STEPS} steps from each in "
+          f"{res['resume_source_seconds']:.2f} / "
+          f"{res['resume_imported_seconds']:.2f} s: state.pt at step {end} "
+          f"bitwise equal (sha256 {digests['source'][:16]}); launches "
+          f"{ {k: v for k, v in paths.items()} }", flush=True)
+    return res, paths
+
+
+def jax_import_phase(torch, gather, scatter, configs, step, state_lib,
+                     cli_train, src):
+    """Both halves of the jax_import phase in a temporary folder, which is
+    removed after them (it holds two full-width checkpoints)."""
+    folder = tempfile.mkdtemp(prefix="ucnerf_jax_import_")
+    t0 = time.perf_counter()
+    try:
+        fixture, paths = jax_fixture_phase(torch, gather, scatter, configs,
+                                           step, state_lib, folder)
+        torch.cuda.empty_cache()
+        full, more = jax_roundtrip_phase(torch, gather, scatter, configs,
+                                         step, state_lib, cli_train, src,
+                                         folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    paths.update(more)
+    secs = time.perf_counter() - t0
+    print(f"[jax_import] phase: {secs:.1f} s", flush=True)
+    return {"fixture": fixture, "full_width": full, "seconds": secs}, paths
 
 
 def grad_atol_frac(modules, name):
@@ -4632,6 +4973,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
         serve_res, serve_paths = serving_phase(
             torch, gather, scatter, hashgrid, configs, step, exp, k4)
+        torch.cuda.empty_cache()
+        jax_res, jax_paths = jax_import_phase(
+            torch, gather, scatter, configs, step, state_lib, cli_train, exp)
     finally:
         shutil.rmtree(exp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4654,6 +4998,7 @@ def main(argv=None):
              "encode": encode_launches,
              "cli_train": cli_res[0]["launches"],
              "cli_resume": cli_res[1]["launches"], **serve_paths,
+             **jax_paths,
              **mvs_paths, **pose_paths, **dp_paths}
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2"), (k3, "K3"),
                        (k5, "K5")):
@@ -4753,7 +5098,8 @@ def main(argv=None):
                        "train_normals": norm_res, "train_options": opt_res,
                        "repeat": repeat_res, "waymo_tpu": tpu_res,
                        "dp": dp_res, "cli": cli_res,
-                       "serve": serve_res, "grad_check": grad_res,
+                       "serve": serve_res, "jax_import": jax_res,
+                       "grad_check": grad_res,
                        "mvs": mvs_res, "pose": pose_res}, f, indent=1)
     print(card)
     print(json.dumps(kernels))

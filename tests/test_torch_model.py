@@ -236,7 +236,8 @@ assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
         "ucnerf_tpu_torch.cli.eval", "ucnerf_tpu_torch.cli.render",
         "ucnerf_tpu_torch.cli.extract", "ucnerf_tpu_torch.cli.tsdf",
         "ucnerf_tpu_torch.cli.train", "ucnerf_tpu_torch.cli.mvs_train",
-        "ucnerf_tpu_torch.cli.mvs_depth", "ucnerf_tpu_torch.models.mvs",
+        "ucnerf_tpu_torch.cli.mvs_depth", "ucnerf_tpu_torch.cli.import_jax",
+        "ucnerf_tpu_torch.models.mvs",
         "ucnerf_tpu_torch.models.mvs.datasets",
         "ucnerf_tpu_torch.models.mvs.extractor",
         "ucnerf_tpu_torch.models.mvs.corr",

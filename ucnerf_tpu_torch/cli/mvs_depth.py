@@ -7,16 +7,16 @@ rescales, post-process (inference.py:52-58), fuse across resolutions
 (multires.py:16-40), and write the per-view ``.npy`` depth maps the NeRF
 trainer consumes (nerf/internal/datasets.py:950).
 
-Checkpoint: a ``torch.save`` file written by ``cli.mvs_train --out``; the
-reference ships train_BlendedMVS.pth as a missing blob, so without
-``--ckpt`` the model is a random init from seed 0.  The JAX CLI's flax
-msgpack files are not read here (``convert.params_from_jax`` carries a JAX
-parameter tree across).
+Checkpoint: a ``torch.save`` file written by ``cli.mvs_train --out``, or
+(``.npz``) the export of a JAX ``cli.mvs_train --out`` msgpack file that
+``tools/export_jax_checkpoint.py --mvs`` writes; either loads strictly into
+the full-width model.  The reference ships train_BlendedMVS.pth as a
+missing blob, so without ``--ckpt`` the model is a random init from seed 0.
 
 Usage:
   python -m ucnerf_tpu_torch.cli.mvs_depth --data-dir /path/segment \
-      --pose-json /path/pose.json --output /path/depths [--ckpt mvs.pt] \
-      [--device cpu]
+      --pose-json /path/pose.json --output /path/depths \
+      [--ckpt mvs.pt | --ckpt mvs.npz] [--device cpu]
 """
 
 from __future__ import annotations
@@ -68,14 +68,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def load_model(ckpt, encoder_type, device):
-    """RAFTMVS from a ``cli.mvs_train --out`` file, else drawn from seed 0,
-    on `device` in eval mode."""
+    """RAFTMVS from a ``cli.mvs_train --out`` file or a JAX MVS export
+    (``.npz``), else drawn from seed 0, on `device` in eval mode."""
     import torch
 
+    from ucnerf_tpu_torch import convert
     from ucnerf_tpu_torch.models.mvs.raft import RAFTMVS
 
     model = RAFTMVS(encoder_type=encoder_type, seed=0)
-    if ckpt is not None:
+    if ckpt is not None and str(ckpt).endswith(".npz"):
+        model.load_state_dict(convert.mvs_params_from_export(
+            convert.load_export(ckpt, "mvs")), strict=True)
+    elif ckpt is not None:
         state = torch.load(ckpt, map_location="cpu", weights_only=True)
         model.load_state_dict(state["state_dict"])
     return model.to(device).eval()

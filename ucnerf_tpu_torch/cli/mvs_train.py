@@ -15,8 +15,9 @@ Usage:
       [--tiny] [--device cpu]
 
 ``--out`` writes a ``torch.save`` file: the model's ``state_dict`` and the
-flags that built it (``cli.mvs_depth --ckpt`` reads it).  The JAX CLI's
-flax msgpack files are not read here.
+flags that built it (``cli.mvs_depth --ckpt`` reads it).  A JAX CLI's
+flax msgpack file reaches ``cli.mvs_depth`` through
+``tools/export_jax_checkpoint.py --mvs``.
 """
 
 from __future__ import annotations

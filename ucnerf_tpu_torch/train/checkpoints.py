@@ -7,9 +7,10 @@ package writes its state tree with orbax; here ``torch.save`` writes the
 model's ``state_dict``, Adam's state (its moments, and its param groups: the
 field's and, with ``optimize_cameras``, the camera deltas') and the step
 counts.  As in the JAX package, a checkpoint saved with camera refinement on
-does not restore with it off, nor the other way round.  The two formats
-are not interchangeable: a JAX checkpoint crosses over as numpy parameters
-through ``convert.params_from_jax``.
+does not restore with it off, nor the other way round.  A JAX (orbax)
+checkpoint is not read here: ``tools/export_jax_checkpoint.py`` exports it
+on the JAX host to a numpy file, and ``cli.import_jax`` writes that as a
+checkpoint of this module (``convert.state_from_export``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch
 from ucnerf_tpu_torch.train.state import TrainState
 
 _FILE = "state.pt"
+# What orbax writes into a step folder.
+_ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
 def _ckpt_dir(base_folder: str) -> str:
@@ -63,10 +66,26 @@ def latest_checkpoint_step(base_folder: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def is_jax_checkpoint(path: str) -> bool:
+    """Whether the step folder `path` holds an orbax checkpoint of the JAX
+    package."""
+    return any(os.path.exists(os.path.join(path, name))
+               for name in _ORBAX_FILES)
+
+
 def _load(base_folder: str, step: int, device):
+    path = os.path.join(_ckpt_dir(base_folder), str(step))
+    if not os.path.exists(os.path.join(path, _FILE)) and is_jax_checkpoint(
+            path):
+        raise ValueError(
+            f"{path} is a JAX (orbax) checkpoint: export it on the JAX host "
+            f"with tools/export_jax_checkpoint.py --exp {base_folder} "
+            f"-o scene.npz, then write a checkpoint of the port with python "
+            f"-m ucnerf_tpu_torch.cli.import_jax --export scene.npz (same "
+            f"preset and bindings, another Config.exp_name)")
     # weights_only: the file holds tensors and plain numbers, nothing else.
-    return torch.load(os.path.join(_ckpt_dir(base_folder), str(step), _FILE),
-                      map_location=device, weights_only=True)
+    return torch.load(os.path.join(path, _FILE), map_location=device,
+                      weights_only=True)
 
 
 def restore_model(base_folder: str, model: torch.nn.Module,

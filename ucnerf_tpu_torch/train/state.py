@@ -73,13 +73,19 @@ class Optimizer:
                 g.clamp_(-cfg.grad_max_val, cfg.grad_max_val)
         if cfg.grad_max_norm > 0:
             clip_by_global_norm_(grads, cfg.grad_max_norm)
-        lr = mathx.learning_rate_decay(self.count, cfg.lr_init, cfg.lr_final,
+        self.set_learning_rate(self.count)
+        self.adam.step()
+        self.count += 1
+
+    def set_learning_rate(self, count: int) -> None:
+        """Set each param group's learning rate to the schedule's at update
+        `count`, times the group's multiplier."""
+        cfg = self.config
+        lr = mathx.learning_rate_decay(count, cfg.lr_init, cfg.lr_final,
                                        cfg.max_steps, cfg.lr_delay_steps,
                                        cfg.lr_delay_mult)
         for group, mult in zip(self.adam.param_groups, self.lr_mults):
             group["lr"] = lr * mult
-        self.adam.step()
-        self.count += 1
 
 
 def create_optimizer(config: Config, params, cam_params=()) -> Optimizer:
