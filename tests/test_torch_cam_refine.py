@@ -24,6 +24,10 @@ Tolerances:
   weights' gradient is an einsum over them, which the JAX side's autodiff
   of its gather gives.
 - ``cam_lr_mult``: the optimizer test's rtol 1e-6, atol 1e-8.
+- pose recovery through an analytic renderer (test_cam_refine.py's
+  north-star): a 5x cut of both halves of the rig error; each of the
+  first 10 Adam updates against optax's from the same state at rtol 1e-4,
+  atol 1e-4 x lr (the test's docstring says why).
 - three training steps: losses at rtol 1e-4 and the camera deltas at rtol
   1e-3 (Adam's first steps are ~lr x sign(g) for each entry, so a delta
   moves by the same amount on both sides while its gradient is well above
@@ -372,3 +376,130 @@ def test_cli_train_with_camera_refinement_resumes_bitwise(tmp_path):
     assert set(a) == set(b)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+def _plane_color(origins, dn):
+    """The analytic renderer of test_cam_refine.py's pose-recovery test in
+    torch: an infinite ground plane (y = -1) with a smooth multi-scale
+    texture, so the photometric objective has a wide basin."""
+    o, d = origins, dn
+    t = (-1.0 - o[..., 1]) / torch.where(d[..., 1].abs() > 1e-6, d[..., 1],
+                                         torch.full_like(d[..., 1], 1e-6))
+    p = o + d * t[..., None]
+    u, v = p[..., 0], p[..., 2]
+
+    def tex(u, v):
+        return (0.6 * torch.sin(0.9 * u) * torch.sin(0.7 * v)
+                + 0.3 * torch.sin(2.3 * u + 1.0) * torch.sin(1.9 * v + 0.5)
+                + 0.15 * torch.sin(5.1 * u + 2.0) * torch.sin(4.3 * v + 1.2))
+
+    return torch.stack([0.5 + 0.4 * tex(u, v),
+                        0.5 + 0.4 * tex(u + 3, v + 1),
+                        0.5 + 0.4 * tex(u - 2, v + 4)], dim=-1)
+
+
+def test_perturbed_camera_recovers():
+    """test_cam_refine.py's north-star on the port: the true camera looks
+    down at the textured plane, the rays come from a pose perturbed by a
+    rigid delta, and photometric optimization of the port's ``se3_apply``
+    deltas with ``torch.optim.Adam`` (lr 3e-3, 300 steps) cuts both the
+    rotation and the translation error by at least 5x.  Each of the first
+    10 updates equals optax's Adam on the JAX package's same loss, taken
+    from the port's deltas and moments, within rtol 1e-4 and an atol of
+    1e-4 x lr (measured: 1.1e-5 x lr; the gradients differ in f32 rounding
+    only).  The two trajectories are not compared: an entry whose
+    gradient changes sign (the third and fifth here) amplifies that
+    rounding about twofold an update, to 6e-3 x lr by the tenth."""
+    import optax
+    from scipy.spatial.transform import Rotation
+
+    import test_cam_refine as jtest
+    from ucnerf_tpu_torch.data import cameras as tcameras
+
+    c2w = np.eye(4)
+    c2w[:3, :3] = Rotation.from_euler("xyz", [-0.5, 0.3, 0.0]).as_matrix()
+    c2w[:3, 3] = [0.5, 1.5, 2.0]
+    k = np.array([[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]])
+    pixtocam = np.linalg.inv(k)
+    x, y = np.meshgrid(np.arange(128), np.arange(96))
+    x, y = x.reshape(-1), y.reshape(-1)
+
+    o_true, d_true, _, _, _ = tcameras.pixels_to_rays(
+        x, y, pixtocam[None], c2w[None, :3, :])
+    dn_true = d_true / np.linalg.norm(d_true, axis=-1, keepdims=True)
+    target = _plane_color(*(tt._t(v.astype(np.float32))
+                            for v in (o_true, dn_true)))
+    np.testing.assert_allclose(
+        target.numpy(), np.asarray(jtest._plane_color_jnp(
+            jnp.asarray(o_true, jnp.float32),
+            jnp.asarray(dn_true, jnp.float32))), **TOL)
+
+    xi_true = np.array([0.03, -0.05, 0.02, 0.08, -0.06, 0.04], np.float32)
+    delta = np.eye(4)
+    delta[:3, :3] = Rotation.from_rotvec(xi_true[:3]).as_matrix()
+    delta[:3, 3] = xi_true[3:]
+    c2w_bad = delta @ c2w
+    o_bad, d_bad, _, _, _ = tcameras.pixels_to_rays(
+        x, y, pixtocam[None], c2w_bad[None, :3, :])
+    o_bad, d_bad = (v.astype(np.float32) for v in (o_bad, d_bad))
+    cd_bad = np.broadcast_to(-c2w_bad[:3, 2], d_bad.shape).astype(np.float32)
+    idx = np.zeros(len(x), np.int32)
+
+    def pose_error(deltas):
+        """Residual rigid error of Exp(delta) @ c2w_bad against c2w."""
+        fix = np.eye(4)
+        fix[:3, :3] = tcam.so3_exp(tt._t(deltas[0, :3])).numpy()
+        fix[:3, 3] = deltas[0, 3:]
+        resid = np.linalg.inv(c2w) @ fix @ c2w_bad
+        ang = np.linalg.norm(Rotation.from_matrix(resid[:3, :3]).as_rotvec())
+        return ang, np.linalg.norm(resid[:3, 3])
+
+    rays_t = [tt._t(v) for v in (o_bad, d_bad, cd_bad)]
+    idx_t = tt._t(idx)
+
+    def loss_t(deltas):
+        o2, d2, _ = tcam.se3_apply(deltas, idx_t, *rays_t)
+        pred = _plane_color(o2, d2 / torch.linalg.norm(d2, dim=-1,
+                                                       keepdim=True))
+        return torch.mean((pred - target) ** 2)
+
+    rays_j = [jnp.asarray(v) for v in (o_bad, d_bad, cd_bad)]
+    target_j = jnp.asarray(target.numpy())
+
+    def loss_j(deltas):
+        o2, d2, _ = jcam.se3_apply(deltas, jnp.asarray(idx), *rays_j)
+        pred = jtest._plane_color_jnp(
+            o2, d2 / jnp.linalg.norm(d2, axis=-1, keepdims=True))
+        return jnp.mean((pred - target_j) ** 2)
+
+    lr = 3e-3
+    tx = optax.adam(lr)
+    step_j = jax.jit(lambda dl, st: jtest._adam_step(loss_j, tx, dl, st))
+    deltas = torch.zeros((1, 6), requires_grad=True)
+    opt = torch.optim.Adam([deltas], lr=lr)
+    err0_rot, err0_tr = pose_error(np.zeros((1, 6), np.float32))
+    for i in range(300):
+        before = deltas.detach().numpy().copy()
+        if i < 10:
+            # optax's Adam from the port's deltas and moments.
+            opt_state = tx.init(jnp.asarray(before))
+            if i:
+                adam = opt.state[deltas]
+                opt_state = (opt_state[0]._replace(
+                    count=jnp.asarray(i, jnp.int32),
+                    mu=jnp.asarray(adam["exp_avg"].numpy()),
+                    nu=jnp.asarray(adam["exp_avg_sq"].numpy())),
+                    *opt_state[1:])
+            after_j, _ = step_j(jnp.asarray(before), opt_state)
+        opt.zero_grad()
+        loss_t(deltas).backward()
+        opt.step()
+        if i < 10:
+            got = deltas.detach().numpy() - before
+            want = np.asarray(after_j) - before
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * lr,
+                                       err_msg=f"update {i + 1}")
+    err_rot, err_tr = pose_error(deltas.detach().numpy())
+    assert err0_rot / max(err_rot, 1e-9) > 5, (err0_rot, err_rot)
+    assert err0_tr / max(err_tr, 1e-9) > 5, (err0_tr, err_tr)

@@ -249,7 +249,8 @@ assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
         "ucnerf_tpu_torch.pose.matching", "ucnerf_tpu_torch.pose.pipeline",
         "ucnerf_tpu_torch.pose.rigba", "ucnerf_tpu_torch.parallel",
         "ucnerf_tpu_torch.parallel.mesh", "ucnerf_tpu_torch.ops.traffic",
-        "ucnerf_tpu_torch.utils.roofline"} <= set(names), names
+        "ucnerf_tpu_torch.utils.roofline", "ucnerf_tpu_torch.tools",
+        "ucnerf_tpu_torch.tools.cam_refine_quality"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "ucnerf_tpu" or m.startswith("ucnerf_tpu.")]
 assert not bad, bad
