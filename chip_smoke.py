@@ -277,6 +277,7 @@ REPEAT_SEED = 7
 DP_STEPS = 2
 DP_CLI_STEPS = (10, 12)
 DP_EVAL_VIEWS = 2
+DP_RENDER_ROWS = 64  # 480 x 64 rays: chunks of 15000, 15000 and 720
 DP_METRIC_RTOL = 1e-3
 # The camera-refinement phase: timed steps after its warm-up.
 CAM_STEPS = 3
@@ -4512,13 +4513,13 @@ def dp_cli_rank(torch, gather, scatter, spec):
 
 
 def dp_step_rank(torch, gather, scatter, spec):
-    """The train step on this rank's slice of the phase's batch, through the
-    group: in mode "nccl1" (a group of one over NCCL) two keyed f32 steps
-    through the group and two without one; in modes "gloo2" (two ranks on
-    card 0) and "cards" (a rank on each card, NCCL) one fixed-basis f32
-    step (its reduced gradients kept) and, for each backward, two runs of
-    DP_STEPS keyed steps, each step's state digested, timed and its
-    launches counted."""
+    """The train step of the spec's preset on this rank's slice of the
+    phase's batch, through the group: in mode "nccl1" (a group of one over
+    NCCL) two keyed f32 steps through the group and two without one; in
+    modes "gloo" (every rank on card 0) and "cards" (a rank on each card,
+    NCCL) one fixed-basis f32 step (its reduced gradients kept) and, for
+    each backward, two runs of DP_STEPS keyed steps, each step's state
+    digested, timed and its launches counted."""
     from ucnerf_tpu_torch import configs
     from ucnerf_tpu_torch.cli import train as cli_train
     from ucnerf_tpu_torch.parallel import mesh
@@ -4528,14 +4529,14 @@ def dp_step_rank(torch, gather, scatter, spec):
     # "cards": a rank on each card; otherwise every rank on card 0.
     device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
                           if spec["mode"] == "cards" else 0)
-    backend = "gloo" if spec["mode"] == "gloo2" else "nccl"
+    backend = "gloo" if spec["mode"] == "gloo" else "nccl"
     group = mesh.initialize_multihost(backend, device, spec["init"])
     rank, world = mesh.rank(group), mesh.world_size(group)
     inputs = torch.load(spec["inputs"], map_location="cpu", weights_only=True)
     n = inputs["batch"]["origins"].shape[0]
     lo, hi = mesh.process_slice(n)
     local = {k: v[lo:hi].to(device) for k, v in inputs["batch"].items()}
-    f32 = configs.waymo(lr_delay_steps=0)
+    f32 = getattr(configs, spec["preset"])(lr_delay_steps=0)
     cfgs = {"f32": f32, "bf16": with_bf16_backward(f32)}
 
     # The all-reduce of each step, timed by CUDA events and the host clock.
@@ -4591,7 +4592,9 @@ def dp_step_rank(torch, gather, scatter, spec):
         return out
 
     res = {"world": world, "backend": torch.distributed.get_backend(group),
-           "rays": hi - lo}
+           "rays": hi - lo,
+           "shares": step.microbatch_shares(
+               n, world, f32.microbatches)[rank].tolist()}
     if spec["mode"] == "nccl1":
         res["group"] = keyed_run("f32", group)
         res["none"] = keyed_run("f32", None)
@@ -4627,12 +4630,27 @@ def dp_step_rank(torch, gather, scatter, spec):
         torch.cuda.empty_cache()
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     res["all_reduce"] = reduces
+    if spec.get("render"):
+        # render_image with the group: each chunk split over the ranks.
+        model, _, _ = fresh("f32", group)
+        eval_step = step.make_eval_step(model, f32)
+        image = {k: v.numpy() for k, v in inputs["image"].items()}
+        reset_launches(gather, scatter)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step.render_image(eval_step, image, f32, eval_camidx=0,
+                                group=group)
+        torch.cuda.synchronize()
+        res["render"] = {"seconds": time.perf_counter() - t0,
+                         "launches": read_launches(gather, scatter)}
+        if rank == 0:
+            np.savez(os.path.join(spec["out"], "render.npz"), **out)
     mesh.shutdown()
     return res
 
 
 def dp_phase(torch, gather, scatter, configs, step, state_lib, cfg, initial,
-             batch):
+             batch, view):
     """Data parallelism on the one card (every rank on cuda:0), each rank a
     process of its own (``--dp-worker``):
     1. a group of one over NCCL: DP_STEPS keyed f32 steps through the group
@@ -4643,8 +4661,17 @@ def dp_phase(torch, gather, scatter, configs, step, state_lib, cfg, initial,
        step, two runs of DP_STEPS steps bitwise equal, for each backward;
        one fixed-basis step's loss and reduced gradients against one
        process on all 15000 rays, at the card-vs-CPU check's tolerances;
+    2a. three ranks over gloo on ``configs.waymo_tpu()``, 5000 rays each:
+       every 1000-ray global microbatch split 334/333/333
+       (``step.microbatch_shares``), with the checks of 2; then
+       ``render_image`` with the group on DP_RENDER_ROWS rows of `view`
+       against one process;
     2b. where the machine has several cards, a rank on each card over
-       NCCL, with the checks of 2 and the rate of one card beside it;
+       NCCL, with the checks of 2 and the rate of one card beside it,
+       whatever the split (8 cards take shares of 187 and 188);
+    2c. ``tools/scaling_bench.py`` at the tiny preset, ranks 1 and 2, weak
+       and strong: its JSON line, and one gradient all-reduce of exactly
+       the parameters' bytes a step;
     3. the entry points at two ranks over gloo on the CLI phase's scene:
        cli.train --multihost (DP_CLI_STEPS: a test render, a checkpoint,
        a resume) and cli.eval of its checkpoint against a one-process
@@ -4659,12 +4686,16 @@ def dp_phase(torch, gather, scatter, configs, step, state_lib, cfg, initial,
         rand_vec = torch.from_numpy(np.random.default_rng(11).normal(
             size=(batch["origins"].shape[0], 3)).astype(np.float32))
         inputs = os.path.join(tmp, "inputs.pt")
+        image = {k: np.ascontiguousarray(v[:DP_RENDER_ROWS])
+                 for k, v in view.items()}
         torch.save({"initial": initial, "rand_vec": rand_vec,
-                    "batch": {k: v.cpu() for k, v in batch.items()}}, inputs)
+                    "batch": {k: v.cpu() for k, v in batch.items()},
+                    "image": {k: torch.from_numpy(v)
+                              for k, v in image.items()}}, inputs)
 
         # 1. A group of one over NCCL.
-        (one,), secs = dp_launch(tmp, "nccl1", 1, {"mode": "nccl1",
-                                                   "inputs": inputs}, 300)
+        (one,), secs = dp_launch(tmp, "nccl1", 1, {
+            "mode": "nccl1", "preset": "waymo", "inputs": inputs}, 300)
         differ = [i + 1 for i, (a, b) in enumerate(zip(
             one["group"]["digests"], one["none"]["digests"])) if a != b]
         check(one["backend"] == "nccl" and not differ
@@ -4685,19 +4716,34 @@ def dp_phase(torch, gather, scatter, configs, step, state_lib, cfg, initial,
               f"({secs:.1f} s with the process start)", flush=True)
 
         # 2. Two ranks over gloo on one card.
-        ranks, secs = dp_launch(tmp, "gloo2", 2, {"mode": "gloo2",
-                                                  "inputs": inputs}, 600)
+        ranks, secs = dp_launch(tmp, "gloo2", 2, {
+            "mode": "gloo", "preset": "waymo", "inputs": inputs}, 600)
         res["gloo_world2"], gloo_paths = dp_check_ranks(
             torch, step, state_lib, cfg, initial, batch, rand_vec, ranks,
             secs, "gloo", os.path.join(tmp, "gloo2", "reduced_grads.pt"))
         paths.update({f"dp_train_{k}": v for k, v in gloo_paths.items()})
 
+        # 2a. Three ranks over gloo on one card, the flagship preset.
+        tpu_cfg = configs.waymo_tpu(lr_delay_steps=0)
+        ranks, secs = dp_launch(tmp, "gloo3_tpu", 3, {
+            "mode": "gloo", "preset": "waymo_tpu", "inputs": inputs,
+            "render": True}, 900)
+        res["gloo_world3_waymo_tpu"], tpu_paths = dp_check_ranks(
+            torch, step, state_lib, tpu_cfg, initial, batch, rand_vec, ranks,
+            secs, "gloo waymo_tpu",
+            os.path.join(tmp, "gloo3_tpu", "reduced_grads.pt"))
+        paths.update({f"dp_tpu_train_{k}": v for k, v in tpu_paths.items()})
+        res["gloo_world3_waymo_tpu"]["render"] = dp_render_check(
+            torch, step, tpu_cfg, initial, image, ranks,
+            os.path.join(tmp, "gloo3_tpu", "render.npz"))
+        paths["dp_tpu_render"] = ranks[0]["render"]["launches"]
+
         # 2b. A rank on each card over NCCL, where the machine has several.
         cards = torch.cuda.device_count()
         n = batch["origins"].shape[0]
-        if cards > 1 and n % (cards * cfg.microbatches) == 0:
+        if cards > 1:
             ranks, secs = dp_launch(tmp, "cards", cards, {
-                "mode": "cards", "inputs": inputs}, 600)
+                "mode": "cards", "preset": "waymo", "inputs": inputs}, 600)
             one_card = [s for run in ("group", "none")
                         for s in one[run]["seconds"]]
             res["nccl_cards"], cards_paths = dp_check_ranks(
@@ -4713,10 +4759,12 @@ def dp_phase(torch, gather, scatter, configs, step, state_lib, cfg, initial,
             paths.update({f"dp_cards_train_{k}": v
                           for k, v in cards_paths.items()})
         else:
-            print(f"[dp nccl cards] not run: {cards} card(s), {n} rays in "
-                  f"{cfg.microbatches} microbatches; NCCL with a rank on "
-                  f"each of several cards is unverified on this machine",
+            print("[dp nccl cards] not run: one card; NCCL with a rank on "
+                  "each of several cards is unverified on this machine",
                   flush=True)
+
+        # 2c. The scaling tool's card path, at the tiny preset.
+        res["scaling_tiny"] = dp_scaling_check(torch, tmp)
 
         # 3. The entry points at two ranks.
         res["cli"], cli_paths = dp_cli_phase(torch, gather, scatter, configs,
@@ -4729,27 +4777,123 @@ def dp_phase(torch, gather, scatter, configs, step, state_lib, cfg, initial,
     return res, paths
 
 
+def dp_render_check(torch, step, cfg, initial, image, ranks, path):
+    """The ranks' ``render_image`` with the group against one process's on
+    the same rays (RENDER_RTOL, RENDER_ATOL: the chunks' slices are
+    rendered at other batch sizes, whose arithmetic rounds otherwise), and
+    each rank's launches: 16 ``take_wsum_cm`` a chunk, nothing else."""
+    model = step.init_model(cfg, seed=0, device="cuda")
+    model.load_state_dict(initial, strict=True)
+    want = step.render_image(step.make_eval_step(model, cfg), image, cfg,
+                             eval_camidx=0)
+    del model
+    got = dict(np.load(path))
+    height, width = image["origins"].shape[:2]
+    errs = {}
+    for k, w in want.items():
+        check(got[k].shape == w.shape == (height, width) + w.shape[2:]
+              and np.isfinite(got[k]).all(), f"dp render {k}: shape "
+              f"{got[k].shape}, want {w.shape}")
+        errs[k] = float(np.abs(got[k] - w).max())
+        check(np.allclose(got[k], w, rtol=RENDER_RTOL, atol=RENDER_ATOL),
+              f"dp render at {len(ranks)} ranks vs one process: {k} max abs "
+              f"err {errs[k]}")
+    chunks = -(-height * width // cfg.render_chunk_size)
+    for r, rr in enumerate(ranks):
+        n = rr["render"]["launches"]
+        check(n["K4"] == n["K4_wsum"] == 16 * chunks and all(
+            v == 0 for k, v in n.items() if k not in ("K4", "K4_wsum")),
+            f"dp render rank {r}: launches {n}, expected {16 * chunks} "
+            f"take_wsum_cm alone")
+    secs = [rr["render"]["seconds"] for rr in ranks]
+    print(f"[dp render] render_image of {width}x{height} ({chunks} chunks) "
+          f"at {len(ranks)} gloo ranks on one card vs one process: max abs "
+          f"err {errs} (rtol {RENDER_RTOL}, atol {RENDER_ATOL}); "
+          f"{16 * chunks} take_wsum_cm a rank; {max(secs):.2f} s",
+          flush=True)
+    return {"max_abs_err": errs, "seconds": secs,
+            "launches": [rr["render"]["launches"] for rr in ranks]}
+
+
+def dp_scaling_check(torch, tmp):
+    """``ucnerf_tpu_torch.tools.scaling_bench`` at the tiny preset, ranks 1
+    and 2, weak and strong, on this machine's cards (one card: gloo, marked
+    wiring only): every point's fields, and each step's collectives one
+    gradient all-reduce of exactly the parameters' bytes and one small
+    all-reduce of the stats."""
+    out = os.path.join(tmp, "scaling_tiny.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ucnerf_tpu_torch.tools.scaling_bench",
+         "--preset", "tiny", "--ranks", "1,2", "--steps", "3",
+         "--out", out, "--timeout", "300"],
+        cwd=ROOT, capture_output=True, text=True, timeout=660)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"scaling_bench exited {proc.returncode}:\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    with open(out) as f:
+        line = json.load(f)
+    rows = line["sweep"]
+    check(line["audit_ok"]
+          and line["device"] == torch.cuda.get_device_name(0)
+          and [(r["mode"], r["ranks"]) for r in rows]
+          == [("weak", 1), ("strong", 1), ("weak", 2), ("strong", 2)]
+          and all(r["all_reduce_bytes"] == r["param_bytes"]
+                  and r["collectives_per_step"][0]["bytes"] == r["param_bytes"]
+                  and len(r["collectives_per_step"]) == 2
+                  and r["rays_per_sec"] > 0
+                  and all(b and b > 0 for b in r["peak_bytes_per_rank"])
+                  for r in rows),
+          f"scaling_bench's line: {line}")
+    print(f"[dp scaling] tools/scaling_bench.py --preset tiny --ranks 1,2 on "
+          f"{line['card']} ({line['backend']}"
+          + (", wiring only" if line["wiring_only"] else "") + "): "
+          + "; ".join(f"{r['mode']} {r['ranks']}: {r['rays_per_sec']:.1f} "
+                      f"rays/s, all-reduce {r['all_reduce_ms']:.3f} ms of "
+                      f"{r['step_ms']:.2f} ({r['all_reduce_bytes']} B), peak "
+                      f"{r['peak_bytes_per_rank']} B" for r in rows)
+          + f"; collectives a step {rows[-1]['collectives_per_step']}; "
+          f"{secs:.1f} s", flush=True)
+    return dict(line, seconds=secs)
+
+
 def dp_check_ranks(torch, step, state_lib, cfg, initial, batch, rand_vec,
                    ranks, secs, tag, grads_path):
-    """Checks and numbers of a data-parallel launch in mode "gloo2" or
-    "cards": for each backward, every rank's launches a step, the ranks
-    bitwise equal after every step and the two runs bitwise equal; the
-    ranks' fixed-basis losses and reduced gradients equal, and rank 0's
-    against one process (dp_fixed_check).  Returns (results, rank 0's
-    launches over a run, by backward)."""
+    """Checks and numbers of a data-parallel launch in mode "gloo" or
+    "cards" of `cfg`'s preset: for each backward, every rank's launches a
+    step (those of a one-process step, a microbatch for each share it
+    holds), the ranks bitwise equal after every step and the two runs
+    bitwise equal; the ranks' fixed-basis losses and reduced gradients
+    equal, and rank 0's against one process (dp_fixed_check).  Returns
+    (results, rank 0's launches over a run, by backward)."""
     world = len(ranks)
-    per_step = {
-        "f32": {"K1": 20, "K1_fused": 20, "K1_plain": 0, "K2": 20,
-                "K3": 0, "K4": 160, "K4_take": 0, "K4_wsum": 160,
-                "K5": 0, "starts": 40},
-        "bf16": {"K1": 0, "K2": 20, "K3": 20, "K3_fused": 20,
-                 "K3_planar": 0, "K4": 160, "K4_take": 0,
-                 "K4_wsum": 160, "K5": 0, "starts": 40}}
     n = batch["origins"].shape[0]
-    shared = "sharing one card" if tag == "gloo" else "one card each"
-    out, paths = {"seconds": secs, "per_step_launches": per_step}, {}
-    for label, want in per_step.items():
+    shares = step.microbatch_shares(n, world, cfg.microbatches)
+    check([rr["shares"] for rr in ranks] == shares.tolist(),
+          f"dp {tag}: the ranks' shares {[rr['shares'] for rr in ranks]}")
+
+    def per_step(m):
+        """A rank's launches a step, with m non-empty shares."""
+        return {
+            "f32": {"K1": 2 * m, "K1_fused": 2 * m, "K1_plain": 0,
+                    "K2": 2 * m, "K3": 0, "K4": 16 * m, "K4_take": 0,
+                    "K4_wsum": 16 * m, "K5": 0, "starts": 4 * m},
+            "bf16": {"K1": 0, "K2": 2 * m, "K3": 2 * m, "K3_fused": 2 * m,
+                     "K3_planar": 0, "K4": 16 * m, "K4_take": 0,
+                     "K4_wsum": 16 * m, "K5": 0, "starts": 4 * m}}
+
+    wants = [per_step(int((row > 0).sum())) for row in shares]
+    shared = "sharing one card" if tag.startswith("gloo") else \
+        "one card each"
+    split = (f"{ranks[0]['rays']} rays each" if shares.min() == shares.max()
+             else f"{ranks[0]['rays']} rays each in shares of "
+                  f"{sorted(set(shares.ravel().tolist()))} of every "
+                  f"{n // cfg.microbatches}-ray microbatch")
+    out, paths = {"seconds": secs, "per_step_launches": wants[0],
+                  "shares": shares.tolist()}, {}
+    for label in ("f32", "bf16"):
         for r, rr in enumerate(ranks):
+            want = wants[r][label]
             for run in rr[label]:
                 for i, got in enumerate(run["launches"]):
                     bad = {k: got[k] for k, v in want.items() if got[k] != v}
@@ -4780,14 +4924,14 @@ def dp_check_ranks(torch, step, state_lib, cfg, initial, batch, rand_vec,
         paths[label] = {k: sum(s[k] for s in ranks[0][label][0]["launches"])
                         for k in ranks[0][label][0]["launches"][0]}
         print(f"[dp {tag} {label}] {world} ranks ({shared}), "
-              f"{ranks[0]['rays']} rays each: launches per rank a step "
+              f"{split}: launches per rank a step "
               f"{ranks[0][label][0]['launches'][0]}; parameters and Adam "
               f"moments bitwise equal across the ranks after each step and "
               f"across two runs of {DP_STEPS} steps; losses {losses[0]}; "
               f"step s {[round(s, 4) for s in secs_step]}, {rate:.1f} rays/s "
               f"of the global batch"
-              + (" (two ranks sharing one card: says nothing of scaling)"
-                 if tag == "gloo" else ""), flush=True)
+              + (" (ranks sharing one card: says nothing of scaling)"
+                 if tag.startswith("gloo") else ""), flush=True)
     fixed = [rr["fixed"] for rr in ranks]
     check(all(f == fixed[0] for f in fixed), f"dp {tag}: the ranks' "
           f"fixed-basis losses or reduced gradients differ: {fixed}")
@@ -4798,7 +4942,7 @@ def dp_check_ranks(torch, step, state_lib, cfg, initial, batch, rand_vec,
                                     batch, rand_vec, fixed[0], grads_path,
                                     tag, world))
     print(f"[dp {tag}] all-reduce of {red[0]['bytes']} B a step"
-          + (" through host memory" if tag == "gloo" else "")
+          + (" through host memory" if tag.startswith("gloo") else "")
           + f": median {float(np.median([r['ms'] for r in red])):.3f} ms by "
           f"CUDA events, {float(np.median([r['host_ms'] for r in red])):.3f} "
           f"ms host; peak per rank {[rr['peak_bytes'] for rr in ranks]} B; "
@@ -5091,7 +5235,8 @@ def main(argv=None):
         profile="{0}.tpu{1}".format(*os.path.splitext(args.profile_train))
         if args.profile_train else None)
     dp_res, dp_paths = dp_phase(torch, gather, scatter, configs, step,
-                                state_lib, train_cfg, initial, batch)
+                                state_lib, train_cfg, initial, batch,
+                                views[0])
     # Every K4 launch of the data-parallel paths (rank 0's) is the fused
     # entry, as on the one-process training and serving paths.
     for label, n in dp_paths.items():
@@ -5282,9 +5427,13 @@ def main(argv=None):
     # Per rank of the two-rank data-parallel step (7500 rays a rank).
     dp_step = {label: dp_res["gloo_world2"][label]["launches_per_step_rank0"]
                for label in ("f32", "bf16")}
+    # And of the three-rank flagship step (shares of 333 and 334 rays).
+    dp_tpu = {label: dp_res["gloo_world3_waymo_tpu"][label][
+        "launches_per_step_rank0"] for label in ("f32", "bf16")}
     for entry, key, label in ((k4, "K4", "f32"), (k1, "K1", "f32"),
                               (k2, "K2", "f32"), (k3, "K3", "bf16")):
         entry["launches_per_dp_step_per_rank"] = dp_step[label][key]
+        entry["launches_per_waymo_tpu_dp_step_per_rank"] = dp_tpu[label][key]
     # The normals step's new roles: K4's two entries and K1's fused entry
     # twice (the table gradient and the double backward's d/d table).
     k4["launches_per_normals_step"] = {

@@ -1,6 +1,6 @@
 """The data-parallel train step and render (``train/step.py`` with a process
-group, ``parallel/mesh.py``) on 2 real gloo ranks on the CPU, at the tiny
-preset, against the JAX package and against one process.
+group, ``parallel/mesh.py``) on 2 and 3 real gloo ranks on the CPU, at the
+tiny preset, against the JAX package and against one process.
 
 Tolerances:
 - the 2-rank step against the JAX step on the concatenated 64-ray batch
@@ -13,8 +13,20 @@ Tolerances:
   since every loss term is a ray mean (``tests/test_multiprocess.py`` shows
   the JAX package's 2-process step equal to its 1-process step the same
   way).
+- uneven shares (``step.microbatch_shares``): 48 rays over 2 ranks in 16
+  microbatches (shares 2 and 1) against JAX's step on the 48 rays in one
+  piece, and 48 rays over 3 ranks in 3 microbatches (shares 5, 5 and 6)
+  and in 24 (N = 2 < W: every rank has empty shares) against the JAX
+  package's own sharded step on a 3-device mesh (its gradients read off a
+  stand-in optimizer that keeps them as its state; its model called with
+  ``key=None``, so every global microbatch of N rays takes the basis
+  ``normal(PRNGKey(0), (N, 3))`` and the port gets that basis ray by ray):
+  the tolerances of the 2-rank step above.  The weighted shares sum each
+  global microbatch's rays in another order than one process, so these
+  agree to f32 rounding, not bitwise.
 - bitwise: the two ranks' parameters after every step, two 2-rank runs of
-  2 keyed steps from one state, and a 1-rank group against no group.
+  2 keyed steps from one state, and a 1-rank group against no group; the
+  three ranks' reduced gradients and stats.
 - the 2-rank render against ``render_image`` in one process: rtol 1e-5,
   atol 1e-6 (f32; each ray is rendered with the same hex basis at both
   world sizes, but in sub-chunks of other sizes and on another thread
@@ -40,6 +52,8 @@ from ucnerf_tpu_torch.train import step as tstep
 from test_torch_parallel import launch_ranks, rendezvous
 
 RAYS = 64  # the global batch; 32 a rank
+UNEVEN = 48  # the uneven cases' global batch: the first 48 of the 64 rays
+THREE_MICRO = (3, 24)  # 16 rays a rank: shares 5/5/6, and 0/1 (N = 2 < W)
 IMAGE = (7, 7)  # the render: chunks of 18, 18 and 13 rays
 KEYED_STEPS = 2
 
@@ -84,6 +98,27 @@ def _keyed_run(cfg, weights, batch, group, rank):
     return snaps, losses
 
 
+def _fixed_step(cfg, weights, local, rand_vec, group):
+    """One fixed-basis step; returns the reduced gradients (read where the
+    optimizer starts, before its clean and clips) and the stats."""
+    model = tstep.init_model(cfg, seed=0, device="cpu")
+    model.load_state_dict(weights, strict=True)
+    state = tstate.create_train_state(cfg, model)
+    grads = {}
+    update = state.optimizer.update
+
+    def keep_then_update():
+        grads.update({n: p.grad.clone()
+                      for n, p in model.named_parameters()})
+        update()
+
+    state.optimizer.update = keep_then_update
+    _, stats = tstep.make_train_step(model, cfg, group)(
+        state, local, 0.5, rand_vec=rand_vec)
+    return {"grads": grads, "loss": stats["loss"].clone(),
+            "losses": {k: v.clone() for k, v in stats["losses"].items()}}
+
+
 def _worker(spec_path):
     """One rank: every data-parallel case on the same group; writes its
     results to <out>/rank<r>.pt."""
@@ -97,9 +132,25 @@ def _worker(spec_path):
     rank, world = mesh.rank(group), mesh.world_size(group)
     inputs = torch.load(spec["inputs"], weights_only=True)
     weights, batch = inputs["weights"], inputs["batch"]
+    res = {}
+    if world == 3:
+        # 48 rays, 16 a rank, in 3 and in 24 global microbatches, each with
+        # JAX's per-microbatch basis.
+        lo, hi = mesh.process_slice(UNEVEN)
+        local = {k: v[lo:hi] for k, v in batch.items()}
+        for micro in THREE_MICRO:
+            cfg = _config(tconfigs, microbatches=micro)
+            res[micro] = _fixed_step(cfg, weights, local,
+                                     inputs[f"rand_vec_m{micro}"][lo:hi],
+                                     group)
+            res[micro]["shares"] = tstep.microbatch_shares(
+                UNEVEN, world, micro)[rank].tolist()
+        torch.save(res, os.path.join(spec["out"], f"rank{rank}.pt"))
+        mesh.shutdown()
+        return
+
     lo, hi = mesh.process_slice(RAYS)
     local = {k: v[lo:hi] for k, v in batch.items()}
-    res = {}
 
     if world == 1:
         # A 1-rank group against no group: the reduce is the identity.
@@ -134,17 +185,28 @@ def _worker(spec_path):
     res["keyed"] = [_keyed_run(cfg2, weights, local, group, rank)
                     for _ in range(2)]
 
-    # A batch that does not split into W x M microbatches: 48 rays over 2
-    # ranks in 16 microbatches (48 % 16 == 0, 48 % 32 != 0).
+    # Uneven shares: 48 rays over 2 ranks in 16 microbatches of 3 (shares
+    # 2 and 1), each rank on its 24.
+    lo48, hi48 = mesh.process_slice(UNEVEN)
+    res["uneven"] = _fixed_step(
+        _config(tconfigs, microbatches=16), weights,
+        {k: v[lo48:hi48] for k, v in batch.items()}, inputs["rand_vec_48"][
+            lo48:hi48], group)
+
+    # Batches that do not split: 50 rays (25 a rank) into 16 microbatches,
+    # and 47 rays over the 2 ranks.
     cfg16 = _config(tconfigs, microbatches=16)
     model16 = tstep.init_model(cfg16, seed=0, device="cpu")
-    try:
-        tstep.make_train_step(model16, cfg16, group)(
-            tstate.create_train_state(cfg16, model16),
-            {k: v[:24] for k, v in local.items()}, 0.5,
-            rand_vec=inputs["rand_vec"][:24])
-    except ValueError as e:
-        res["ragged"] = str(e)
+    res["ragged"] = []
+    for call in (lambda: tstep.make_train_step(model16, cfg16, group)(
+                     tstate.create_train_state(cfg16, model16),
+                     {k: v[:25] for k, v in local.items()}, 0.5,
+                     rand_vec=inputs["rand_vec"][:25]),
+                 lambda: mesh.process_slice(47)):
+        try:
+            call()
+        except ValueError as e:
+            res["ragged"].append(str(e))
 
     # A rank that starts from other weights is set right by the broadcast.
     other = tstep.init_model(cfg, seed=rank, device="cpu")
@@ -171,9 +233,40 @@ def _launch(tmp_path, name, world, inputs):
             for r in range(world)]
 
 
+def _jax_sharded_grads(jax, jnp, jstep, model_j, params, cfg_j, batch,
+                       devices):
+    """The JAX package's own sharded train step (``make_train_step`` with a
+    mesh of `devices`) on the global `batch`, its model called with
+    ``key=None``.  Its optimizer is a stand-in that applies no update and
+    keeps the gradients as its state: returns (stats, gradients)."""
+    import optax
+
+    from ucnerf_tpu.parallel import mesh as jmesh
+    from ucnerf_tpu.train import state as jstate
+
+    class Keyless:
+        def apply(self, variables, key, *args, **kwargs):
+            return model_j.apply(variables, None, *args, **kwargs)
+
+    keep = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jstate, "create_optimizer", lambda config: keep)
+        mesh = jmesh.create_mesh(devices)
+        train_step = jstep.make_train_step(Keyless(), cfg_j, mesh=mesh)
+        state = jstate.TrainState(step=jnp.zeros((), jnp.int32),
+                                  params=params, opt_state=keep.init(params))
+        state, stats = train_step(state, jmesh.shard_batch(batch, mesh),
+                                  jax.random.PRNGKey(1), jnp.float32(0.5))
+    return stats, state.opt_state
+
+
 def _jax_reference(cfg_t):
-    """JAX's value_and_grad of the train loss on the 64-ray batch with
-    randomized weights (test_torch_train's recipe), and the inputs."""
+    """JAX's value_and_grad of the train loss on the 64-ray batch and on its
+    first 48 rays, with randomized weights (test_torch_train's recipe); the
+    JAX package's sharded step on the 48 rays over 3 devices in each of
+    THREE_MICRO microbatches; and the inputs."""
     import jax
     import jax.numpy as jnp
 
@@ -190,6 +283,7 @@ def _jax_reference(cfg_t):
     batch = tstep.dummy_batch(cfg_t, RAYS)
     batch["rgb"] = rng.uniform(0, 1, (RAYS, 3)).astype(np.float32)
     batch["sky_segs"] = (rng.uniform(size=RAYS) < 0.3).astype(np.float32)
+    uneven = {k: v[:UNEVEN] for k, v in batch.items()}
 
     def loss_fn(p, b):
         renderings, ray_history = model_j.apply(
@@ -198,25 +292,47 @@ def _jax_reference(cfg_t):
                                                       ray_history, cfg_j)
         return total, losses
 
+    def numpy_tree(tree):
+        return convert.params_from_jax(jax.tree.map(np.asarray, tree))
+
+    def basis(n):
+        return np.asarray(jax.random.normal(jax.random.PRNGKey(0), (n, 3),
+                                            jnp.float32))
+
+    out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jhash, "SCATTER_IMPL", "pallas_interpret")
-        (total, losses), grads = jax.jit(
-            jax.value_and_grad(loss_fn, has_aux=True))(
-                params, jax.tree.map(jnp.asarray, batch))
-    rand_vec = np.asarray(jax.random.normal(jax.random.PRNGKey(0),
-                                            (RAYS, 3), jnp.float32))
-    weights = convert.params_from_jax(jax.tree.map(np.asarray, params))
-    return dict(weights=weights, batch=batch, rand_vec=rand_vec,
-                total=float(total),
-                losses={k: float(v) for k, v in losses.items()},
-                grads=convert.params_from_jax(
-                    jax.tree.map(np.asarray, grads)))
+        grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        for name, b in (("whole", batch), ("whole_48", uneven)):
+            (total, losses), grads = grad_fn(params,
+                                             jax.tree.map(jnp.asarray, b))
+            out[name] = dict(total=float(total),
+                             losses={k: float(v) for k, v in losses.items()},
+                             grads=numpy_tree(grads))
+        for micro in THREE_MICRO:
+            stats, grads = _jax_sharded_grads(
+                jax, jnp, jstep, model_j, params,
+                dataclasses.replace(cfg_j, microbatches=micro), uneven,
+                jax.devices()[:3])
+            out[f"sharded_m{micro}"] = dict(
+                total=float(stats["loss"]),
+                losses={k: float(v) for k, v in stats["losses"].items()},
+                grads=numpy_tree(grads))
+    rand_vecs = {"rand_vec": basis(RAYS), "rand_vec_48": basis(UNEVEN)}
+    for micro in THREE_MICRO:
+        rand_vecs[f"rand_vec_m{micro}"] = np.tile(basis(UNEVEN // micro),
+                                                  (micro, 1))
+    whole = out.pop("whole")
+    return dict(weights=numpy_tree(params), batch=batch,
+                rand_vec=rand_vecs["rand_vec"], rand_vecs=rand_vecs,
+                total=whole["total"], losses=whole["losses"],
+                grads=whole["grads"], **out)
 
 
 @pytest.fixture(scope="module")
 def dp(tmp_path_factory):
-    """The JAX reference, then one 2-rank launch and one 1-rank launch on
-    its inputs (~25 s in all, mostly the JAX side's compile)."""
+    """The JAX references, then one 2-rank, one 1-rank and one 3-rank
+    launch on their inputs."""
     tmp = tmp_path_factory.mktemp("dp")
     cfg = _config(tconfigs)
     ref = _jax_reference(cfg)
@@ -226,32 +342,118 @@ def dp(tmp_path_factory):
     torch.save({"weights": ref["weights"],
                 "batch": {k: torch.from_numpy(v)
                           for k, v in ref["batch"].items()},
-                "rand_vec": torch.from_numpy(ref["rand_vec"].copy()),
+                **{k: torch.from_numpy(v.copy())
+                   for k, v in ref["rand_vecs"].items()},
                 "image": {k: torch.from_numpy(v) for k, v in image.items()}},
                inputs)
     two = _launch(tmp, "two", 2, inputs)
     one = _launch(tmp, "one", 1, inputs)
-    return dict(ref=ref, two=two, one=one, image=image, cfg=cfg)
+    three = _launch(tmp, "three", 3, inputs)
+    return dict(ref=ref, two=two, one=one, three=three, image=image, cfg=cfg)
+
+
+def _assert_step_matches(res, ref):
+    """A port step's loss terms and reduced gradients against JAX's, at the
+    2-rank step's tolerances."""
+    assert set(res["losses"]) == set(ref["losses"])
+    for k, v in res["losses"].items():
+        np.testing.assert_allclose(float(v), ref["losses"][k], rtol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(res["loss"]), ref["total"], rtol=1e-4)
+    assert set(res["grads"]) == set(ref["grads"])
+    for name, g in res["grads"].items():
+        w = ref["grads"][name].numpy()
+        scale = float(np.abs(w).max())
+        assert scale > 0, name
+        atol = (2e-5 if name.endswith("table") else 1e-5) * scale
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=atol,
+                                   err_msg=name)
 
 
 def test_two_rank_step_matches_jax_on_the_whole_batch(dp):
-    ref = dp["ref"]
     for res in dp["two"]:
-        stats = res["stats"]
-        assert set(stats["losses"]) == set(ref["losses"])
-        for k, v in stats["losses"].items():
-            np.testing.assert_allclose(float(v), ref["losses"][k], rtol=1e-4,
-                                       err_msg=k)
-        np.testing.assert_allclose(float(stats["loss"]), ref["total"],
+        _assert_step_matches(dict(res["stats"], grads=res["grads"]),
+                             dp["ref"])
+
+
+def test_uneven_shares_match_jax_on_the_whole_batch(dp):
+    """48 rays over 2 ranks in 16 microbatches of 3: each rank takes 2 rays
+    of half the microbatches and 1 of the others, weighted by W n / N."""
+    for res in dp["two"]:
+        _assert_step_matches(res["uneven"], dp["ref"]["whole_48"])
+    a, b = (res["uneven"] for res in dp["two"])
+    for n in a["grads"]:
+        assert torch.equal(a["grads"][n], b["grads"][n]), n
+    assert torch.equal(a["loss"], b["loss"])
+
+
+def _misses(got, want, name):
+    """Entries of `got` outside the 2-rank step's tolerance of `want`."""
+    scale = float(np.abs(want).max())
+    atol = (2e-5 if name.endswith("table") else 1e-5) * scale
+    return np.abs(got - want) > 1e-4 * np.abs(want) + atol
+
+
+@pytest.mark.parametrize("micro", THREE_MICRO)
+def test_three_ranks_match_the_jax_sharded_step(dp, micro):
+    """48 rays over 3 ranks (16 a rank, (B / W) % M != 0) against the JAX
+    package's sharded step on a 3-device mesh, and against the port's own
+    step in one process on the same 48 rays and microbatches.  At 24
+    microbatches of 2 rays each rank runs 16 of them and skips 8.
+
+    The 3 ranks agree with the one process at the 2-rank tolerances
+    everywhere.  Against JAX the one process (and so the 3 ranks) misses a
+    few entries of a table's dense levels, where the backward rounds each
+    sample's frac to bf16 and a position that differs in its last f32 bit
+    can round to the neighbouring bf16 value (measured at 3 microbatches:
+    2 entries of the NeRF table's level 1, 3.6e-5 x max|grad|, beside the
+    2e-5 tolerance).  So every entry outside the tolerance of JAX must be
+    one the one-process step misses too, a dense-level row, and at most
+    2 a table."""
+    ref = dp["ref"][f"sharded_m{micro}"]
+    shares = [res[micro]["shares"] for res in dp["three"]]
+    assert np.array_equal(np.sum(shares, axis=0),
+                          [UNEVEN // micro] * micro)
+    assert all(sum(s) == UNEVEN // 3 for s in shares)
+    if micro == 24:
+        assert all(s.count(0) == 8 for s in shares)
+    cfg = _config(tconfigs, microbatches=micro)
+    batch = {k: torch.from_numpy(v[:UNEVEN])
+             for k, v in dp["ref"]["batch"].items()}
+    one = _fixed_step(cfg, dp["ref"]["weights"], batch, torch.from_numpy(
+        dp["ref"]["rand_vecs"][f"rand_vec_m{micro}"].copy()), None)
+    model = tstep.init_model(cfg, seed=0, device="cpu")
+    dense_rows = {f"{n}.table": m.grid_spec.offsets[m.grid_spec.dense_prefix]
+                  for n, m in model.named_modules()
+                  if hasattr(m, "grid_spec")}
+    for res in dp["three"]:
+        got = res[micro]
+        assert set(got["losses"]) == set(ref["losses"])
+        for k, v in got["losses"].items():
+            np.testing.assert_allclose(float(v), ref["losses"][k],
+                                       rtol=1e-4, err_msg=k)
+            np.testing.assert_allclose(float(v), float(one["losses"][k]),
+                                       rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(float(got["loss"]), ref["total"],
                                    rtol=1e-4)
-        assert set(res["grads"]) == set(ref["grads"])
-        for name, g in res["grads"].items():
+        assert set(got["grads"]) == set(ref["grads"]) == set(one["grads"])
+        for name, g in got["grads"].items():
+            g, o = g.numpy(), one["grads"][name].numpy()
             w = ref["grads"][name].numpy()
-            scale = float(np.abs(w).max())
-            assert scale > 0, name
-            atol = (2e-5 if name.endswith("table") else 1e-5) * scale
-            np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=atol,
-                                       err_msg=name)
+            assert float(np.abs(w).max()) > 0, name
+            assert not _misses(g, o, name).any(), name
+            miss = _misses(g, w, name)
+            assert not (miss & ~_misses(o, w, name)).any(), name
+            if miss.any():
+                assert name in dense_rows, name
+                assert miss.sum() <= 1e-4 * miss.size, (name, miss.sum())
+                assert (np.argwhere(miss)[:, 1] < dense_rows[name]).all(), \
+                    (name, np.argwhere(miss))
+    first = dp["three"][0][micro]
+    for res in dp["three"][1:]:
+        for n in first["grads"]:
+            assert torch.equal(res[micro]["grads"][n], first["grads"][n]), n
+        assert torch.equal(res[micro]["loss"], first["loss"])
 
 
 def test_each_rank_alone_is_not_the_whole_batch(dp):
@@ -342,9 +544,33 @@ def test_render_would_differ_with_a_per_rank_basis(dp):
 
 
 def test_a_batch_that_does_not_split_raises(dp):
+    """B % M != 0 raises in the step; B % W != 0 raises in process_slice
+    (and in microbatch_shares), as in the JAX package."""
     for res in dp["two"]:
-        assert "48 rays over 2 rank(s)" in res["ragged"]
-        assert "16 microbatches" in res["ragged"]
+        step_err, slice_err = res["ragged"]
+        assert "50 rays do not split into 16 microbatches" in step_err
+        assert "global batch 47 not divisible by 2 processes" in slice_err
+    with pytest.raises(ValueError, match="not divisible by 2 processes"):
+        tstep.microbatch_shares(47, 2, 1)
+
+
+SHARE_GRID = [(15000, 8, 10), (15000, 3, 15), (15000, 6, 15), (15000, 4, 10),
+              (48, 2, 16), (48, 3, 3), (48, 3, 24), (48, 3, 48), (64, 2, 64),
+              (12, 4, 12), (102, 3, 6), (256, 1, 4), (1200, 16, 15),
+              (30, 5, 2)]
+
+
+@pytest.mark.parametrize("batch,world,micro", SHARE_GRID)
+def test_microbatch_shares(batch, world, micro):
+    shares = tstep.microbatch_shares(batch, world, micro)
+    n = batch // micro
+    assert shares.shape == (world, micro)
+    assert (shares.sum(axis=0) == n).all()
+    assert (shares.sum(axis=1) == batch // world).all()
+    assert set(np.unique(shares)) <= {n // world, -(-n // world)}
+    if n % world == 0:
+        # Equal shares: the contiguous split the step always made.
+        assert (shares == n // world).all()
 
 
 def test_broadcast_sets_every_rank_to_rank_0(dp):

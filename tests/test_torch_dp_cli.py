@@ -1,7 +1,10 @@
 """The entry points on 2 real gloo ranks on the CPU, at the tiny preset:
 ``cli.train --multihost`` (one log, one checkpoint set, a resumed run
 bitwise the uninterrupted one) and ``cli.eval`` under a 2-rank launch (the
-metric files of a 1-process eval of the same checkpoint).
+metric files of a 1-process eval of the same checkpoint); and
+``cli.train --multihost`` on 3 ranks with uneven shares of each
+microbatch (UNEVEN: 102 rays in 6 microbatches of 17, 34 rays a rank
+taken as shares of 6, 6, 6, 6, 5 and 5), trained and resumed.
 
 Tolerances: the 2-rank training run against its own resumed copy is held
 bitwise (every parameter, Adam moment and count).  The 2-rank eval against
@@ -31,13 +34,17 @@ TRAIN = ["--tiny", "--device", "cpu", "--max-steps", str(STEPS),
          "-b", "Config.checkpoints_total_limit = 2"]
 
 
-def _launch(module, folder, name, *argv):
-    """`python -m module argv` as 2 ranks; returns their output."""
+UNEVEN = ["-b", "Config.batch_size = 102", "-b", "Config.microbatches = 6",
+          "-b", "Config.train_render_every = 0"]
+
+
+def _launch(module, folder, name, *argv, world=2):
+    """`python -m module argv` as `world` ranks; returns their output."""
     work = folder / name
     work.mkdir()
     return launch_ranks(
         [sys.executable, "-m", module, "--dist-init-method",
-         rendezvous(work), *argv], 2)
+         rendezvous(work), *argv], world)
 
 
 def _train(folder, name, exp):
@@ -143,3 +150,26 @@ def test_two_rank_eval_matches_one_process(runs):
         assert got.shape == want.shape and np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=name)
     assert "(rank 0 of 2, gloo)" in (two / "log_eval.txt").read_text()
+
+
+def test_three_rank_train_with_uneven_shares(tmp_path):
+    """4 steps at 3 ranks, then a resume to 6: one loss line a logged step,
+    written by rank 0 alone, finite and falling."""
+    exp = tmp_path / "uneven"
+    args = ["--multihost", *TRAIN, *UNEVEN,
+            "-b", f"Config.exp_name = {str(exp)!r}"]
+    outs = _launch("ucnerf_tpu_torch.cli.train", tmp_path, "run_4",
+                   *args, "--max-steps", "4", world=3)
+    _launch("ucnerf_tpu_torch.cli.train", tmp_path, "run_6", *args, world=3)
+    log = (exp / "log_train.txt").read_text()
+    assert log.count("(rank 0 of 3, gloo)") == 2
+    assert "[rank 1]" not in log and "[rank 2]" not in log
+    for r in (1, 2):
+        assert f"[rank {r}]: device: cpu (rank {r} of 3, gloo)" in outs
+    assert "resumed from step 4" in log
+    steps = re.findall(r"step (\d+)/\d+: loss=(\S+)", log)
+    assert [int(a) for a, _ in steps] == [1, 2, 4, 5, 6]
+    losses = np.array([float(b) for _, b in steps])
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    # Saved at 3 and at the end of each call, the last 2 kept.
+    assert sorted(os.listdir(exp / "checkpoints")) == ["4", "6"]

@@ -32,9 +32,15 @@ stream from ``1234 + init_step``, so its resumed runs draw other batches.)
 
 With ``--multihost`` (under torchrun) each of W ranks draws its own
 batch_size / W rays and patterns from those seeds (the JAX loop folds the
-process index into its host seed), the gradients are averaged over the ranks in the step, and only rank
-0 writes the log file, TensorBoard and checkpoints.  Every rank reads the
-checkpoint it resumes from, and rank 0's parameters are broadcast after it.
+process index into its host seed), the gradients are averaged over the
+ranks in the step, and only rank 0 writes the log file, TensorBoard and
+checkpoints.  W must divide batch_size, and so must the microbatch count;
+a rank's batch_size / W rays need not split into the microbatches, as each
+rank takes a floor or ceil share of every global microbatch
+(``step.microbatch_shares``): ``--preset waymo`` on 8 cards runs its
+10 microbatches of 1500 rays as shares of 187 and 188 a rank.  Every rank
+reads the checkpoint it resumes from, and rank 0's parameters are
+broadcast after it.
 """
 
 from __future__ import annotations

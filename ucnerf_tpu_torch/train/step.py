@@ -11,9 +11,10 @@ chunks an image's rays on the host, renders each chunk with the eval step
 activation peak at the piece's size), and reassembles numpy arrays.
 
 Both take an optional process group (``parallel/mesh.py``): the step then
-receives the rank's local batch and averages the ranks' gradients and
-stats, and the render splits each chunk over the ranks and gathers it back
-(the JAX package's mesh-sharded step and render).
+receives the rank's local batch, takes its share of each global microbatch
+(``microbatch_shares``) and averages the ranks' gradients and stats, and
+the render splits each chunk over the ranks and gathers it back (the JAX
+package's mesh-sharded step and render).
 """
 
 from __future__ import annotations
@@ -80,53 +81,96 @@ def batch_to_device(arrays, device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def microbatch_shares(batch: int, world: int, microbatches: int):
+    """The rays each rank takes of each global microbatch: an int array
+    [world, microbatches] whose columns sum to N = batch / microbatches,
+    whose rows sum to batch / world, and whose entries are floor(N / world)
+    or ceil(N / world) (0 where N < world).  The ceil cells lie cyclically:
+    row r holds a = batch / world - microbatches * floor(N / world) of them,
+    in columns r a, ..., r a + a - 1 (mod microbatches), so each column
+    gets N mod world.  Raises, as ``process_slice`` and the JAX package's
+    sharded reshape do, unless world and microbatches divide batch."""
+    if batch % world:
+        raise ValueError(f"global batch {batch} not divisible by {world} "
+                         f"processes")
+    if batch % microbatches:
+        raise ValueError(f"{batch} rays do not split into {microbatches} "
+                         f"microbatches")
+    floor = batch // microbatches // world
+    ceils = batch // world - microbatches * floor
+    shares = np.full((world, microbatches), floor, np.int64)
+    for r in range(world):
+        shares[r, (r * ceils + np.arange(ceils)) % microbatches] += 1
+    return shares
+
+
 def make_train_step(model: UCNeRFModel, config: Config, group=None):
     """Build the train step.
 
     Returns ``train_step(state, batch, train_frac, generator=None,
-    rand_vec=None) -> (state, stats)``.  batch is a dict of [N, ...] tensors
-    on the model's device (the ``dummy_batch`` layout), N divisible by
-    ``config.microbatches``.  With a ``torch.Generator`` the forward draws
-    its jitter and hex patterns from it (the JAX keyed step); without one it
-    is deterministic and ``rand_vec`` [N, 3] fixes the hex basis.  stats
-    holds the microbatch means of the total (``loss``), of each loss term
-    (``losses``) and of the per-level MSEs (``mses``), as tensors.
+    rand_vec=None) -> (state, stats)``.  batch is a dict of [n, ...] tensors
+    on the model's device (the ``dummy_batch`` layout).  With a
+    ``torch.Generator`` the forward draws its jitter and hex patterns from
+    it (the JAX keyed step); without one it is deterministic and
+    ``rand_vec`` [n, 3] fixes the hex basis.  stats holds the microbatch
+    means of the total (``loss``), of each loss term (``losses``) and of
+    the per-level MSEs (``mses``), as tensors.
 
-    With a process `group` of W ranks, batch is this rank's local batch of
-    B / W rays, split into microbatches of B / (W M) rays as the JAX step
-    splits each global microbatch over its devices.  After the microbatch
-    loop one all-reduce replaces each gradient by the ranks' mean
-    (``mesh.all_reduce_grads``; every loss is a ray mean, so that is the
-    global batch's gradient), before the optimizer cleans, clips and steps,
-    and the stats are averaged over the ranks too.  At W = 1 the reduce is
-    the identity, bit for bit.
+    The step is the JAX step's: the mean, over ``config.microbatches``
+    global microbatches of N = B / microbatches rays, of each microbatch's
+    ray-mean gradient, then one optimizer update.  Without a group B = n,
+    and microbatch i is rays [i N, (i + 1) N).
+
+    With a process `group` of W ranks, batch is this rank's B / W rays of
+    the global batch B (every rank passes as many).  The step runs
+    whenever W and the microbatch count divide B, as the JAX package's
+    sharded step does: rank r takes ``microbatch_shares(B, W, M)[r, i]``
+    rays of global microbatch i, its rays in order, floor or ceil of N / W.
+    Each microbatch's total is scaled by W n / N before its backward (the
+    multiply is skipped where the weight is 1, so equal shares are
+    bitwise what they were), and so are its loss terms and stats; an empty
+    share runs no forward.  One all-reduce then replaces each gradient by
+    the ranks' mean (``mesh.all_reduce_grads``), before the optimizer
+    cleans, clips and steps, and a second, small one averages the stats.
+    That is the global microbatches' gradient because every loss term is
+    a ray mean or independent of the rays (the data loss divides by the
+    sum of ``lossmult``, which every dataset sets to 1; where it varied,
+    the weighted shares would not be the global mean).  At W = 1 the
+    reduce is the identity, bit for bit.
 
     The JAX package recomputes the fields in the backward
     (``remat_fields``, for a TPU's 16 GB); the port keeps the activations
     and ignores that knob.
     """
     num_micro = max(config.microbatches, 1)
+    world, rank = ((1, 0) if group is None else
+                   (meshlib.world_size(group), meshlib.rank(group)))
 
     def train_step(state: TrainState, batch, train_frac, generator=None,
                    rand_vec=None):
         n = batch["origins"].shape[0]
-        if n % num_micro:
-            w = meshlib.world_size(group) if group is not None else 1
-            raise ValueError(f"{n * w} rays over {w} rank(s) do not split "
-                             f"into {num_micro} microbatches a rank")
-        size = n // num_micro
+        shares = microbatch_shares(n * world, world, num_micro)[rank].tolist()
+        starts = np.cumsum([0] + shares).tolist()
+        per_micro = n * world // num_micro
         params = list(state.model.parameters())
         for p in params:
             p.grad = None
         total_acc = losses_acc = stats_acc = None
-        for i in range(num_micro):
-            part = slice(i * size, (i + 1) * size)
+        for i, size in enumerate(shares):
+            if not size:
+                continue
+            part = slice(starts[i], starts[i] + size)
             mb = {k: v[part] for k, v in batch.items()}
             renderings, ray_history = state.model(
                 mb, train_frac, None if rand_vec is None else rand_vec[part],
                 compute_extras=False, train=True, generator=generator)
             total, losses, stats = losses_lib.compute_all_losses(
                 mb, renderings, ray_history, config)
+            if world * size != per_micro:
+                weight = world * size / per_micro
+                total = total * weight
+                losses = {k: v * weight for k, v in losses.items()}
+                stats = {k: v * weight for k, v in stats.items()}
             total.backward()
             del renderings, ray_history
             if total_acc is None:
