@@ -147,8 +147,13 @@ Phases:
      and timed on the updates it was handed;
   9. CLI phase: ``ucnerf_tpu_torch.cli.train`` in-process on the synthetic
      scene (``--preset synthetic_quality`` with the bf16 backward): 30
-     steps, a test render, checkpoints, then a second call that resumes at
-     step 30 and ends at 40;
+     steps, a test render, checkpoints (the last two kept), then a second
+     call that resumes at step 30 and ends at 40;
+  9a. checkpoint-step phase: ``ucnerf_tpu_torch/tools/eval_ckpt_step.py``
+     on the older kept checkpoint (step 30), its launches counted from 0
+     (K4's fused entry alone, 16 a render chunk), its PSNR and SSIM of 2
+     test views equal to ``cli.eval``'s on a folder that holds step 30
+     alone;
   10. serving phase, on the CLI phase's step-40 checkpoint, each entry
      point in-process with its launches counted from 0 (K4 only, all
      through the fused entry): ``cli.eval`` on every test view with the ray
@@ -177,8 +182,11 @@ Phases:
   11. MVS phase: the CER-MVS depth estimator's entry points in-process,
      ``cli.mvs_train`` and ``cli.mvs_depth``, with the launches of each
      counted from 0 (no hand-written kernel lies on either path): the tiny
-     cascade's quality recipe (600 steps at a 64x96 crop; the per-view median
-     abs-rel depth error of the trained cascade below the random init's); 20
+     cascade's quality recipe through ``ucnerf_tpu_torch/tools/mvs_quality.py``
+     (600 steps at a 64x96 crop, then per-view, multires and geo-fused
+     abs-rel and the fused points of the random-init and trained weights,
+     printed; the per-view median of the trained cascade below the random
+     init's); 20
      full-width training steps; full-width depth of 3 reference views with 6
      sources each on the synthetic scene at 1920x1280, rescales 0.5 and 1.0
      and ``--fuse``, twice (every ``.npy`` bitwise equal); each pass's
@@ -291,6 +299,11 @@ K5_CHUNKS = (1, 24)
 # checkpoint interval.
 CLI_STEPS = (30, 40)
 CLI_CHECKPOINT_EVERY = 20
+# The CLI keeps its last two checkpoints: after each call, those steps.
+CLI_KEEP = 2
+CLI_SAVES = {30: (20, 30), 40: (30, 40)}
+# The checkpoint-step phase scores the older one on these test views.
+CKPT_STEP_VIEWS = (0, 1)
 CLI_PRINT_EVERY = 10
 # The serving phase: frames of the render path (Config.render_path_frames,
 # cut from 120), training views fused by cli.tsdf (cut from all 35), the
@@ -2784,6 +2797,7 @@ def cli_argv(exp):
             "-b", f"Config.print_every = {CLI_PRINT_EVERY}",
             "-b", f"Config.train_render_every = {CLI_STEPS[0]}",
             "-b", f"Config.checkpoint_every = {CLI_CHECKPOINT_EVERY}",
+            "-b", f"Config.checkpoints_total_limit = {CLI_KEEP}",
             "-b", "Config.lr_delay_steps = 0"]
 
 
@@ -2823,11 +2837,10 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
               f"CLI: non-finite log values {lines}")
         check(("resumed from step %d" % start in log) == bool(start),
               f"CLI: resume line wrong for a start at step {start}")
-        kept = sorted(os.listdir(os.path.join(exp, "checkpoints")))
-        # checkpoints_total_limit is 1 in the preset: only the final
-        # save is left, the one at step 20 was pruned.
-        check(kept == [str(max_steps)],
-              f"CLI: checkpoints {kept}, expected [{max_steps}]")
+        kept = sorted(os.listdir(os.path.join(exp, "checkpoints")), key=int)
+        # The last CLI_KEEP saves are left (20 and 30, then 30 and 40).
+        want = [str(v) for v in CLI_SAVES[max_steps]]
+        check(kept == want, f"CLI: checkpoints {kept}, expected {want}")
         check(launches["K3"] == steps * microbatches * 2
               and launches["K3_fused"] == launches["K3"]
               and launches["K3_planar"] == 0
@@ -2888,6 +2901,66 @@ def serving_cli(torch, gather, scatter, label, main, argv):
         n == 0 for k, n in launches.items() if not k.startswith("K4")),
           f"{label}: launches {launches}; expected K4 alone")
     return secs, launches
+
+
+def ckpt_step_phase(torch, gather, scatter, configs, exp):
+    """``ucnerf_tpu_torch/tools/eval_ckpt_step.py`` in-process on the CLI
+    phase's older retained checkpoint (step 30, kept beside 40), its
+    launches counted from 0 (K4 alone, all ``take_wsum_cm``, 16 a render
+    chunk); its PSNR and SSIM of CKPT_STEP_VIEWS equal to those of
+    ``cli.eval`` on a folder that holds only that step."""
+    from ucnerf_tpu_torch.cli import eval as cli_eval
+    from ucnerf_tpu_torch.data import datasets
+    from ucnerf_tpu_torch.tools import eval_ckpt_step
+
+    older = CLI_SAVES[CLI_STEPS[-1]][0]
+    binding = f"Config.exp_name = {exp!r}"
+    cfg = configs.load_config("synthetic_quality", [binding])
+    test = datasets.load_dataset("test", cfg)
+    chunks = -(-test.width * test.height // cfg.render_chunk_size)
+    views = [str(v) for v in CKPT_STEP_VIEWS]
+    reset_launches(gather, scatter)
+    t0 = time.perf_counter()
+    step, scores = eval_ckpt_step.main(
+        ["--preset", "synthetic_quality", "-b", binding, "--step",
+         str(older), "--indices", *views])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(gather, scatter)
+    check_fused_entry(gather, "eval_ckpt_step")
+    want = 16 * chunks * len(views)
+    check(step == older and launches["K4"] == want and all(
+        n == 0 for k, n in launches.items() if not k.startswith("K4")),
+          f"eval_ckpt_step: step {step}, launches {launches}; expected "
+          f"{want} K4 ({len(views)} views of {chunks} chunks) alone")
+
+    # cli.eval on a folder that holds step `older` alone.
+    only = tempfile.mkdtemp(prefix="ucnerf_ckpt_step_")
+    try:
+        shutil.copytree(os.path.join(exp, "checkpoints", str(older)),
+                        os.path.join(only, "checkpoints", str(older)))
+        eval_secs, eval_launches = serving_cli(
+            torch, gather, scatter, "eval_ckpt_step cli eval", cli_eval.main,
+            ["--preset", "synthetic_quality", "-b",
+             f"Config.exp_name = {only!r}", "--limit", str(len(views))])
+        metrics = {}
+        for key in ("psnr", "ssim"):
+            with open(os.path.join(only, f"{key}_{older}.txt")) as f:
+                metrics[key] = [float(v) for v in f.read().split()]
+    finally:
+        shutil.rmtree(only, ignore_errors=True)
+    got = {key: [float(scores[int(v)][key]) for v in views]
+           for key in ("psnr", "ssim")}
+    check(got == metrics, f"eval_ckpt_step at step {older}: {got}; cli.eval "
+                          f"on a folder of that step alone: {metrics}")
+    res = {"step": older, "views": len(views), "seconds": secs,
+           "cli_eval_seconds": eval_secs, "metrics": got}
+    print(f"[ckpt_step] eval_ckpt_step on step {older} (kept beside "
+          f"{CLI_STEPS[-1]}): psnr {got['psnr']}, ssim {got['ssim']} in "
+          f"{secs:.2f} s, equal to cli.eval on a folder of that step alone "
+          f"({eval_secs:.2f} s); launches {launches}", flush=True)
+    return res, {"eval_ckpt_step": launches,
+                 "eval_ckpt_step_cli_eval": eval_launches}
 
 
 def ply_header(path):
@@ -3672,32 +3745,6 @@ def mvs_log_rate(lines):
     return (s1 - s0) / (t1 - t0) if t1 > t0 else float("nan")
 
 
-def mvs_abs_rel(torch, model, win, crop, device):
-    """tools/mvs_quality.py's per-view score of `model`: every window at
-    `crop`, rescale 1.0, post-processed and upsampled (nearest) to the crop,
-    against the analytic depth: (median, mean abs-rel, valid share)."""
-    from ucnerf_tpu_torch.cli import common
-    from ucnerf_tpu_torch.models.mvs import pipelines
-
-    ch, cw = crop
-    preds, gts = [], []
-    with torch.no_grad(), common.deterministic_cudnn():
-        for i in range(len(win)):
-            images, poses, intr, scale = win.window(i)
-            disp = model(*(torch.from_numpy(np.ascontiguousarray(a)).to(
-                device) for a in (images[:, :ch, :cw], poses, intr)),
-                scale=scale)
-            depth = pipelines.resize(pipelines.postprocess_disp(disp),
-                                     (ch, cw), "nearest")
-            preds.append(depth.cpu().numpy())
-            gts.append(win.depths[i][:ch, :cw])
-    pred, gt = np.stack(preds), np.stack(gts)
-    valid = (pred > 0) & (gt > 0)
-    r = np.abs(pred[valid] - gt[valid]) / gt[valid]
-    return (float(np.median(r)) if r.size else float("nan"),
-            float(r.mean()) if r.size else float("nan"), float(valid.mean()))
-
-
 def mvs_grads(torch, model, batch):
     """(loss, {name: gradient}) of one sequence-loss step of `model`."""
     from ucnerf_tpu_torch.models.mvs import pipelines
@@ -3940,45 +3987,52 @@ def mvs_phase(torch, gather, scatter):
     from ucnerf_tpu_torch.cli import mvs_depth, mvs_train
     from ucnerf_tpu_torch.models.mvs import datasets as mvs_data
     from ucnerf_tpu_torch.models.mvs import raft
+    from ucnerf_tpu_torch.tools import mvs_quality
 
     device = torch.device("cuda")
     res, paths = {}, {}
     tmp = tempfile.mkdtemp(prefix="ucnerf_mvs_")
     try:
-        tiny_ckpt = os.path.join(tmp, "tiny.pt")
         full_ckpt = os.path.join(tmp, "full.pt")
-        # 1. The tiny cascade's quality recipe, in-process.
+        # 1. The tiny cascade's quality recipe: the port of
+        # tools/mvs_quality.py (training through cli.mvs_train, then every
+        # stage of the pipeline on the random-init and the trained weights).
         reset_launches(gather, scatter)
-        losses, secs, lines = mvs_cli(
-            torch, mvs_train.main,
-            ["--tiny", "--steps", str(MVS_TINY_STEPS), "--crop",
-             *map(str, MVS_CROP), "--lr", str(MVS_LR), "--out", tiny_ckpt])
+        quality, secs, lines = mvs_cli(
+            torch, mvs_quality.main,
+            ["--steps", str(MVS_TINY_STEPS), "--crop", *map(str, MVS_CROP)])
+        paths["mvs_quality"] = read_launches(gather, scatter)
+        losses = quality["losses"]
         check(np.isfinite(losses).all() and min(losses[-3:]) < losses[0],
               f"MVS: tiny training did not learn: {losses[:3]} ... "
               f"{losses[-3:]}")
+        score = {label.lower(): {"stages": stages, "points": points}
+                 for label, (stages, points) in quality["scores"].items()}
+        trained, initial = score["trained"], score["random-init"]
+        check(trained["stages"]["per-view"][1]
+              < initial["stages"]["per-view"][1]
+              and all(np.isfinite(v).all() for v in
+                      trained["stages"].values())
+              and trained["points"] > 0,
+              f"MVS: the trained tiny cascade's stages {trained} against "
+              f"the random init's {initial}")
         win = mvs_data.SyntheticMVSWindows(num_views=5)
-        state = torch.load(tiny_ckpt, map_location="cpu",
-                           weights_only=True)["state_dict"]
-        trained = mvs_train.build_model(tiny=True).to(device)
-        trained.load_state_dict(state)
-        initial = mvs_train.build_model(tiny=True).to(device)
-        score = {label: mvs_abs_rel(torch, m, win, MVS_CROP, device)
-                 for label, m in (("random_init", initial),
-                                  ("trained", trained))}
-        check(score["trained"][0] < score["random_init"][0],
-              f"MVS: the trained tiny cascade's median abs-rel "
-              f"{score['trained'][0]} is not below the random init's "
-              f"{score['random_init'][0]}")
         res["tiny"] = {"steps": MVS_TINY_STEPS, "seconds": secs,
                        "steps_per_s": MVS_TINY_STEPS / secs,
                        "log_steps_per_s": mvs_log_rate(lines),
                        "loss_first": losses[0], "loss_last": losses[-1],
-                       "abs_rel_median_mean_valid": score}
-        print(f"[mvs] tiny: {MVS_TINY_STEPS} steps in {secs:.1f} s "
+                       "mean_median_valid_abs_rel": score}
+        table = [s for s in lines if s.lstrip().startswith(
+            ("random-init", "TRAINED"))]
+        print(f"[mvs] tiny (tools/mvs_quality.py's port): {MVS_TINY_STEPS} "
+              f"steps and the scoring in {secs:.1f} s "
               f"({res['tiny']['log_steps_per_s']:.1f} steps/s logged), loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f}; per-view median abs-rel "
-              f"{score['trained'][0]:.4f} trained, "
-              f"{score['random_init'][0]:.4f} random init", flush=True)
+              f"{trained['stages']['per-view'][1]:.4f} trained, "
+              f"{initial['stages']['per-view'][1]:.4f} random init; fused "
+              f"points {trained['points']} / {initial['points']}", flush=True)
+        for row in table:
+            print(f"[mvs] {row}", flush=True)
 
         # 2. Full-width training steps at the CLI's default crop.
         losses, secs, lines = mvs_cli(
@@ -5146,6 +5200,7 @@ def main(argv=None):
     if args.dp_worker:
         return dp_worker(args.dp_worker)
 
+    t_start = time.perf_counter()
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
     sys.path.insert(0, ROOT)
@@ -5323,6 +5378,8 @@ def main(argv=None):
         check(cli_res[0]["steady_window_rays_per_s"],
               "CLI: no steady log window in the first call")
         torch.cuda.empty_cache()
+        step_res, step_paths = ckpt_step_phase(torch, gather, scatter,
+                                               configs, exp)
         serve_res, serve_paths = serving_phase(
             torch, gather, scatter, hashgrid, configs, step, exp, k4)
         torch.cuda.empty_cache()
@@ -5349,7 +5406,8 @@ def main(argv=None):
              "train_options": opt_res["launches"],
              "encode": encode_launches,
              "cli_train": cli_res[0]["launches"],
-             "cli_resume": cli_res[1]["launches"], **serve_paths,
+             "cli_resume": cli_res[1]["launches"], **step_paths,
+             **serve_paths,
              **jax_paths,
              **mvs_paths, **pose_paths, **dp_paths}
     for entry, key in ((k4, "K4"), (k1, "K1"), (k2, "K2"), (k3, "K3"),
@@ -5456,9 +5514,12 @@ def main(argv=None):
                        "train_normals": norm_res, "train_options": opt_res,
                        "repeat": repeat_res, "waymo_tpu": tpu_res,
                        "dp": dp_res, "cli": cli_res,
+                       "ckpt_step": step_res,
                        "serve": serve_res, "jax_import": jax_res,
                        "grad_check": grad_res,
                        "mvs": mvs_res, "pose": pose_res}, f, indent=1)
+    print(f"[time] the whole smoke, the kernels' build included: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -250,7 +250,10 @@ assert {"ucnerf_tpu_torch.ops.scatter", "ucnerf_tpu_torch.train.losses",
         "ucnerf_tpu_torch.pose.rigba", "ucnerf_tpu_torch.parallel",
         "ucnerf_tpu_torch.parallel.mesh", "ucnerf_tpu_torch.ops.traffic",
         "ucnerf_tpu_torch.utils.roofline", "ucnerf_tpu_torch.tools",
-        "ucnerf_tpu_torch.tools.cam_refine_quality"} <= set(names), names
+        "ucnerf_tpu_torch.tools.cam_refine_quality",
+        "ucnerf_tpu_torch.tools.scaling_bench",
+        "ucnerf_tpu_torch.tools.mvs_quality",
+        "ucnerf_tpu_torch.tools.eval_ckpt_step"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "ucnerf_tpu" or m.startswith("ucnerf_tpu.")]
 assert not bad, bad

@@ -152,7 +152,7 @@ def test_construct_ray_warps(rng, fn, lam):
         fn, jnp.asarray(near), jnp.asarray(far), lam)
     tt = s_to_t(_t(s))
     _close(tt, js_to_t(jnp.asarray(s)), rtol=2e-5, atol=1e-5)
-    _close(t_to_s(tt), jt_to_s(jnp.asarray(tt.numpy())), rtol=2e-5,
+    _close(t_to_s(tt), jt_to_s(jnp.asarray(tt.numpy().copy())), rtol=2e-5,
            atol=1e-5)
 
 

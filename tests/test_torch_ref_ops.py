@@ -247,7 +247,7 @@ def test_ref_utils(rng):
     m2 = tref.l2_normalize(_t(n + 0.3 * v))
     _close(tref.compute_weighted_mae(_t(w), _t(n_unit), m2),
            jref.compute_weighted_mae(jnp.asarray(w), jnp.asarray(n_unit),
-                                     jnp.asarray(m2.numpy())), rtol=1e-5,
+                                     jnp.asarray(m2.numpy().copy())), rtol=1e-5,
            atol=1e-4)
     kappa = rng.uniform(0, 1, (20, 1)).astype(np.float32)
     for deg in (1, 3, 4):

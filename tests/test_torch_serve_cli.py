@@ -24,6 +24,7 @@ from ucnerf_tpu_torch.cli import train as cli_train
 from ucnerf_tpu_torch.cli import tsdf as cli_tsdf
 from ucnerf_tpu_torch.data import datasets
 from ucnerf_tpu_torch.extraction import meshing
+from ucnerf_tpu_torch.tools import eval_ckpt_step, mvs_quality
 from ucnerf_tpu_torch.ops import coord as tcoord
 from ucnerf_tpu_torch.train import checkpoints as ckpt
 from ucnerf_tpu_torch.train import step as step_lib
@@ -33,7 +34,10 @@ torch.set_num_threads(2)
 
 STEPS = 20
 CLIS = {"eval": cli_eval, "render": cli_render, "extract": cli_extract,
-        "tsdf": cli_tsdf, "train": cli_train}
+        "tsdf": cli_tsdf, "train": cli_train,
+        "eval_ckpt_step": eval_ckpt_step, "mvs_quality": mvs_quality}
+# The flags of the entry points that take more than a preset and bindings.
+EXTRA_FLAGS = {"eval_ckpt_step": ["--step", "1"]}
 
 
 @pytest.fixture(scope="module")
@@ -161,5 +165,8 @@ def test_cli_needs_cuda_unless_asked_for_the_cpu(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     exp = str(tmp_path / "exp")
+    argv = (["--steps", "1"] if name == "mvs_quality" else
+            ["--tiny", "-b", f"Config.exp_name = {exp!r}"]
+            + EXTRA_FLAGS.get(name, []))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        CLIS[name].main(["--tiny", "-b", f"Config.exp_name = {exp!r}"])
+        CLIS[name].main(argv)

@@ -126,22 +126,16 @@ def export_state(state, exp):
 _MODELS = {}
 
 
-def run_case(case, folder):
-    """The JAX run of `case` (a key of CASES) in `folder`: returns the
-    config, the export of the state after STEPS steps (at
-    ``folder/state/export.npz``) and the expectations (eval and training
-    inputs and JAX's outputs) as one dict of numpy arrays."""
+def jax_model(bindings):
+    """(config, initial parameters, jitted gradient with the captured
+    pre-activations of the ReLU-fed layers, eval step) of the tiny preset
+    with `bindings`, compiled once for each model."""
     import jax
-    import jax.numpy as jnp
 
     from ucnerf_tpu import configs
-    from ucnerf_tpu.ops import hashgrid as jhash
     from ucnerf_tpu.train import losses
-    from ucnerf_tpu.train import state as jstate
     from ucnerf_tpu.train import step as jstep
-    from ucnerf_tpu_torch import convert
 
-    bindings = BINDINGS + CASES[case]
     cfg = configs.load_config("tiny", bindings)
     # The clips shape the optimizer alone: cases that differ in them share
     # the model and its compiled functions.
@@ -159,28 +153,62 @@ def run_case(case, folder):
 
         _MODELS[key] = (params, jax.jit(jax.grad(loss_fn, has_aux=True)),
                         jstep.make_eval_step(model, cfg))
-    params, grad_fn, eval_step = _MODELS[key]
+    return (cfg,) + _MODELS[key]
+
+
+def jax_step(cfg, grad_fn, state, batch):
+    """One JAX training step of `state` on `batch` (key=None): (next
+    state, gradient, captured pre-activations)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ucnerf_tpu.ops import hashgrid as jhash
+    from ucnerf_tpu.train import state as jstate
+
+    # The gradient runs the Pallas scatters in interpret mode, as
+    # tests/test_torch_train.py does (it is traced at the first call):
+    # the dense levels' table gradient then rounds the fractional
+    # coordinates to bf16, as K2 does, where the CPU's default XLA
+    # scatter differentiates the f32 forward.
+    impl, jhash.SCATTER_IMPL = jhash.SCATTER_IMPL, "pallas_interpret"
+    try:
+        grads, inter = grad_fn(state.params,
+                               jax.tree.map(jnp.asarray, batch))
+    finally:
+        jhash.SCATTER_IMPL = impl
+    update = _UPDATES.get(repr(cfg))
+    if update is None:
+        update = _UPDATES[repr(cfg)] = jax.jit(
+            jstate.create_optimizer(cfg).update)
+    updates, opt_state = update(grads, state.opt_state, state.params)
+    params = jax.tree.map(lambda p, u: p + u, state.params, updates)
+    return state.replace(step=state.step + 1, params=params,
+                         opt_state=opt_state), grads, inter
+
+
+# The jitted optax update of each config, by its repr.
+_UPDATES = {}
+
+
+def run_case(case, folder):
+    """The JAX run of `case` (a key of CASES) in `folder`: returns the
+    config, the export of the state after STEPS steps (at
+    ``folder/state/export.npz``) and the expectations (eval and training
+    inputs and JAX's outputs) as one dict of numpy arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    from ucnerf_tpu.train import state as jstate
+    from ucnerf_tpu_torch import convert
+
+    bindings = BINDINGS + CASES[case]
+    cfg, params, grad_fn, eval_step = jax_model(bindings)
     rng = np.random.default_rng(SEED)
     params = randomize(params, rng)
     state = jstate.create_train_state(cfg, params)
-    update = jax.jit(jstate.create_optimizer(cfg).update)
 
     def take_step(state, batch):
-        # The gradient runs the Pallas scatters in interpret mode, as
-        # tests/test_torch_train.py does (it is traced at the first call):
-        # the dense levels' table gradient then rounds the fractional
-        # coordinates to bf16, as K2 does, where the CPU's default XLA
-        # scatter differentiates the f32 forward.
-        impl, jhash.SCATTER_IMPL = jhash.SCATTER_IMPL, "pallas_interpret"
-        try:
-            grads, inter = grad_fn(state.params,
-                                   jax.tree.map(jnp.asarray, batch))
-        finally:
-            jhash.SCATTER_IMPL = impl
-        updates, opt_state = update(grads, state.opt_state, state.params)
-        params = jax.tree.map(lambda p, u: p + u, state.params, updates)
-        return state.replace(step=state.step + 1, params=params,
-                             opt_state=opt_state), grads, inter
+        return jax_step(cfg, grad_fn, state, batch)
 
     for _ in range(STEPS):
         state, _, _ = take_step(state, ray_batch(cfg, rng, TRAIN_RAYS))

@@ -105,6 +105,23 @@ def deterministic_cudnn():
         cudnn.deterministic, cudnn.benchmark = prev
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 matmuls and convolutions inside the block (cuDNN's
+    convolutions take TF32 by default on the card); the previous settings
+    come back after it."""
+    import torch
+
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = prev
+
+
 def load_config_from_args(args) -> configs.Config:
     preset = "tiny" if getattr(args, "tiny", False) else args.preset
     return configs.load_config(preset, args.binding)

@@ -12,10 +12,13 @@ deterministic algorithms, so a step repeats bit for bit.
 
 Usage:
   python -m ucnerf_tpu_torch.cli.mvs_train --steps 200 --out mvs.pt \
-      [--tiny] [--device cpu]
+      [--tiny] [--device cpu] [--seed N | --init mvs.npz]
 
 ``--out`` writes a ``torch.save`` file: the model's ``state_dict`` and the
-flags that built it (``cli.mvs_depth --ckpt`` reads it).  A JAX CLI's
+flags that built it (``cli.mvs_depth --ckpt`` reads it).  The weights are
+drawn from ``--seed``, or start from ``--init``, an MVS export of
+``tools/export_jax_checkpoint.py --mvs`` (the JAX CLI's initial weights,
+say, so that both packages train from the same point).  A JAX CLI's
 flax msgpack file reaches ``cli.mvs_depth`` through
 ``tools/export_jax_checkpoint.py --mvs``.
 """
@@ -31,11 +34,18 @@ TINY = dict(cascade=((8, 64, 2), (-1, 320, 2)), dim_fmap=16, dim_net=16,
             dim_inp=16, num_levels=2, radius=2)
 
 
-def build_model(tiny: bool, seed: int = 0):
-    """RAFTMVS at full width, or the --tiny cascade, drawn from `seed`."""
+def build_model(tiny: bool, seed: int = 0, init=None):
+    """RAFTMVS at full width, or the --tiny cascade, drawn from `seed`, or
+    loaded strictly from the MVS export at `init` when given."""
     from ucnerf_tpu_torch.models.mvs.raft import RAFTMVS
 
-    return RAFTMVS(**(TINY if tiny else {}), seed=seed)
+    model = RAFTMVS(**(TINY if tiny else {}), seed=seed)
+    if init is not None:
+        from ucnerf_tpu_torch import convert
+
+        model.load_state_dict(convert.mvs_params_from_export(
+            convert.load_export(init, "mvs")), strict=True)
+    return model
 
 
 def crop_batch(win, idx, crop, device):
@@ -89,6 +99,12 @@ def main(argv=None):
     parser.add_argument("--crop", type=int, nargs=2, default=(64, 96))
     parser.add_argument("--out", default=None)
     parser.add_argument("--tiny", action="store_true")
+    init = parser.add_mutually_exclusive_group()
+    init.add_argument("--seed", type=int, default=0,
+                      help="seed of the initial weights")
+    init.add_argument("--init", default=None,
+                      help="initial weights: an MVS export (.npz) of "
+                           "tools/export_jax_checkpoint.py --mvs")
     from ucnerf_tpu_torch.cli import common
 
     common.add_device_arg(parser)
@@ -100,7 +116,7 @@ def main(argv=None):
 
     device = common.resolve_device(args.device,
                                    logging.getLogger("ucnerf_tpu_torch"))
-    model = build_model(args.tiny).to(device)
+    model = build_model(args.tiny, args.seed, args.init).to(device)
     win = SyntheticMVSWindows(num_views=5)
     train_step, _ = make_train_step(model, args.lr, args.gradual_weight)
     t0 = time.time()
