@@ -1,0 +1,8 @@
+"""Device idle milliseconds a training step while the host is inside the
+losses (``ucnerf.losses``), over the traced steps."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.idle_ms(run, "train", ("ucnerf.losses",))

@@ -90,11 +90,11 @@ def main(argv=None):
         for idx in range(n):
             img_batch = test_dataset.image_batch(idx)
             camidx = _eval_camidx(config, idx, test_dataset.cam_num)
-            t0 = time.time()
+            t0 = time.perf_counter()
             rendering = step_lib.render_image(
                 eval_step, img_batch, config, train_frac=1.0,
                 eval_camidx=camidx, group=group)
-            dt = time.time() - t0
+            dt = time.perf_counter() - t0
             if not main_process:
                 continue
             gt = img_batch["rgb"]

@@ -67,8 +67,9 @@ def main(argv=None):
     parser = common.make_parser(__doc__)
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--profile-steps", type=int, default=0,
-                        help="capture a torch.profiler trace over N steps "
-                             "(written to <exp>/profile)")
+                        help="capture a torch.profiler trace over N steps: "
+                             "the kernels and the ucnerf.* spans (written "
+                             "to <exp>/profile/trace.json)")
     parser.add_argument("--multihost", action="store_true",
                         help="train data-parallel over the processes "
                              "torchrun started (parallel/mesh.py)")
@@ -163,8 +164,8 @@ def main(argv=None):
     profiler = None
     profile_start = init_step + 5  # skip the warm-up steps
     profile_stop = profile_start + args.profile_steps
-    t_start = time.time()
-    t_window = time.time()
+    t_start = time.perf_counter()
+    t_window = time.perf_counter()
     window_start = init_step  # the last step of the previous log window
     try:
         for step in range(init_step + 1, config.max_steps + 1):
@@ -193,8 +194,8 @@ def main(argv=None):
             if step % config.print_every == 0 or step == init_step + 1:
                 loss = float(stats["loss"])
                 losses = {k: float(v) for k, v in stats["losses"].items()}
-                dt = time.time() - t_window
-                t_window = time.time()
+                dt = time.perf_counter() - t_window
+                t_window = time.perf_counter()
                 # The window after a start or a resume holds fewer steps
                 # than print_every: the rate counts the steps it holds.
                 steps_per_sec = (step - window_start) / max(dt, 1e-9)
@@ -224,7 +225,7 @@ def main(argv=None):
                 idx = (step // config.train_render_every) % \
                     test_dataset.n_examples
                 img_batch = test_dataset.image_batch(idx)
-                t0 = time.time()
+                t0 = time.perf_counter()
                 # Test-index -> training-latent remap for the brightness
                 # correction.
                 rendering = step_lib.render_image(
@@ -235,8 +236,8 @@ def main(argv=None):
                     group=group)
                 if main_process:
                     _log_test_render(metric_harness, rendering, img_batch,
-                                     idx, step, time.time() - t0, logger,
-                                     writer)
+                                     idx, step, time.perf_counter() - t0,
+                                     logger, writer)
 
             if step % config.checkpoint_every == 0:
                 save(step)
@@ -248,7 +249,7 @@ def main(argv=None):
             writer.close()
 
     save(config.max_steps)
-    logger.info("done in %.1fs", time.time() - t_start)
+    logger.info("done in %.1fs", time.perf_counter() - t_start)
     if group is not None:
         mesh.shutdown()
 

@@ -33,6 +33,7 @@ import numpy as np
 from ucnerf_tpu_torch.configs import Config
 from ucnerf_tpu_torch.data import cameras as camlib
 from ucnerf_tpu_torch.data import warping
+from ucnerf_tpu_torch.utils.spans import spanned
 
 
 class DataSplit(enum.Enum):
@@ -106,6 +107,7 @@ class RayDataset:
         batch.pop("imageplane", None)
         return {k: v for k, v in batch.items() if v is not None}
 
+    @spanned("ucnerf.data.sample")
     def sample_batch(self, rng: np.random.Generator, batch_size: int):
         """Sample a training batch of random pixels across all images.
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from ucnerf_tpu_torch.configs import MLPConfig
 from ucnerf_tpu_torch.ops import coord, hashgrid
+from ucnerf_tpu_torch.utils.spans import spanned
 
 
 class DenseCM(nn.Module):
@@ -147,6 +148,7 @@ class ZipMLP(nn.Module):
             self.rgb_layer = DenseCM(width, cfg.num_rgb_channels, generator,
                                      compute_dtype=cdt)
 
+    @spanned("ucnerf.encode")
     def encode_features(self, means, stds, inner_grad_first=False):
         """Warp, hash-encode, erf-downweight and hex-average (channel-major).
 

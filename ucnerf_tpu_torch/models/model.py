@@ -33,6 +33,7 @@ from ucnerf_tpu_torch.models.fields import ZipMLP
 from ucnerf_tpu_torch.models.sky import SkyNeRF, render_sky
 from ucnerf_tpu_torch.ops import (coord, grad_scaler, hashgrid, rendering,
                                   stepfun)
+from ucnerf_tpu_torch.utils.spans import spanned
 
 
 class UCNeRFModel(nn.Module):
@@ -68,6 +69,7 @@ class UCNeRFModel(nn.Module):
                 net_depth=mcfg.brightness_net_depth,
                 net_width=mcfg.brightness_net_width)
 
+    @spanned("ucnerf.forward")
     def forward(self, batch, train_frac, rand_vec=None, compute_extras=False,
                 eval_camidx=None, train=False, generator=None, bg_draw=None):
         """Render a flat ray batch.

@@ -19,6 +19,7 @@ import torch
 
 from ucnerf_tpu_torch.configs import Config
 from ucnerf_tpu_torch.ops import mathx, stepfun
+from ucnerf_tpu_torch.utils.spans import spanned
 
 
 def compute_data_loss(batch, renderings, config: Config):
@@ -164,6 +165,7 @@ def opacity_loss(renderings, config: Config):
     return total
 
 
+@spanned("ucnerf.losses")
 def compute_all_losses(batch, renderings, ray_history, config: Config):
     """The loss dict in the JAX package's order; returns (total, losses,
     stats)."""

@@ -15,6 +15,9 @@ receives the rank's local batch, takes its share of each global microbatch
 (``microbatch_shares``) and averages the ranks' gradients and stats, and
 the render splits each chunk over the ranks and gathers it back (the JAX
 package's mesh-sharded step and render).
+
+Under a profiler, each microbatch's backward, the step's optimizer update
+and ``render_image`` show as ``ucnerf.*`` spans (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ucnerf_tpu_torch.models.model import UCNeRFModel
 from ucnerf_tpu_torch.parallel import mesh as meshlib
 from ucnerf_tpu_torch.train import losses as losses_lib
 from ucnerf_tpu_torch.train.state import TrainState
+from ucnerf_tpu_torch.utils.spans import span, spanned
 
 
 def init_model(config: Config, seed: int = 0, device="cuda") -> UCNeRFModel:
@@ -68,6 +72,7 @@ def dummy_batch(config: Config, n: int) -> Dict[str, np.ndarray]:
     }
 
 
+@spanned("ucnerf.data.to_device")
 def batch_to_device(arrays, device) -> Dict[str, torch.Tensor]:
     """Host ray arrays as tensors on `device`, 64-bit floats and ints
     narrowed to 32 bits (the data layer casts rays in float64; the JAX
@@ -171,7 +176,8 @@ def make_train_step(model: UCNeRFModel, config: Config, group=None):
                 total = total * weight
                 losses = {k: v * weight for k, v in losses.items()}
                 stats = {k: v * weight for k, v in stats.items()}
-            total.backward()
+            with span("ucnerf.backward"):
+                total.backward()
             del renderings, ray_history
             if total_acc is None:
                 total_acc = total.detach()
@@ -184,14 +190,15 @@ def make_train_step(model: UCNeRFModel, config: Config, group=None):
                 stats_acc = {k: stats_acc[k] + v.detach()
                              for k, v in stats.items()}
         inv = 1.0 / num_micro
-        if num_micro > 1:
-            with torch.no_grad():
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.mul_(inv)
-        if group is not None:
-            meshlib.all_reduce_grads(params, group)
-        state.optimizer.update()
+        with span("ucnerf.optimizer"):
+            if num_micro > 1:
+                with torch.no_grad():
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.mul_(inv)
+            if group is not None:
+                meshlib.all_reduce_grads(params, group)
+            state.optimizer.update()
         new_state = TrainState(step=state.step + 1, model=state.model,
                                optimizer=state.optimizer)
         out = {k: v * inv for k, v in stats_acc.items()}
@@ -284,6 +291,7 @@ def make_eval_step(model: UCNeRFModel, config: Config,
     return eval_step
 
 
+@spanned("ucnerf.render")
 def render_image(eval_step, batch, config: Config, train_frac=1.0,
                  eval_camidx=0, rand_vec=None, group=None):
     """Render all rays of an image by chunking through the eval step.
