@@ -30,6 +30,12 @@ Phases:
      an odd count, for both grids, with its device time against its byte
      bound, and the encoder's launches (one per training call, one per level
      without grad); the render and training phases count its launches too;
+  3b. train-graph phase: ``tests/test_card_train_graph.py`` run by pytest
+     as a gate: the train step replayed from a CUDA graph bitwise the eager
+     step (losses, gradients, parameters, Adam moments; the kernels a
+     replay runs, counted on the card from a profiler trace) at
+     ``configs.waymo()``, ``configs.waymo_tpu()`` and with camera
+     refinement, at a reduced batch;
   4. render phase: render 2 views of 480x320 through ``render_image`` with
      the canonical Waymo model (``configs.waymo()``, full width, random
      weights from a seed), count the kernel launches of that run, check the
@@ -49,7 +55,14 @@ Phases:
      Adam) on a fixed batch drawn from the two views; check the losses, the
      updates, the table gradients and the launches: 20 K1 (all through the
      fused entry, so no [C, 8 N L] values are built), 20 K2, 160 K4 and 40
-     run-starts passes a step;
+     run-starts passes a step, counted by the kernel wrappers in the
+     warm-up, which runs eagerly, and on the card (from a profiler trace)
+     in one step more after the timed ones; the first timed step captures
+     the microbatch loop's CUDA graph and every later step replays it, so
+     the wrappers, which count the launches their Python issues, see none
+     of a replay's (as in the bf16, flagship, camera and field phases; the
+     rig and CLI phases check the wrappers' counts over the eager calls and
+     the captures);
   7. bf16 training phase: the same model from the same initial state with
      ``grid_bwd_value_dtype='bfloat16'`` on both fields, one warm-up and 2
      timed steps; K3 takes K1's place (20 K3, all through its fused entry,
@@ -559,24 +572,24 @@ def kernel_phase(torch, gather):
         take_wsum_cm=wsum, smaller_shapes=smaller)
 
 
-def corners_phase():
-    """The hash-corner kernel's card tests, run by pytest in a process of
-    their own (``--noconftest``: the tests' conftest sets JAX up); returns
-    the lines they print."""
+def card_tests_phase(name, tag):
+    """The card tests of ``tests/test_card_<name>.py``, run by pytest in a
+    process of their own (``--noconftest``: the tests' conftest sets JAX
+    up); returns the lines they print under ``[tag]``."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p",
            "no:cacheprovider", "-q", "-s", "-rs",
-           os.path.join("tests", "test_card_hash_corners.py")]
+           os.path.join("tests", f"test_card_{name}.py")]
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
     lines = [ln for ln in out.stdout.splitlines()
-             if ln.startswith("[hash_corners]")]
+             if ln.startswith(f"[{tag}]")]
     for ln in lines:
         print(ln, flush=True)
     summary = out.stdout.strip().splitlines()[-1] if out.stdout.strip() \
         else ""
     check(out.returncode == 0 and "skipped" not in summary,
-          f"the hash-corner card tests failed ({out.returncode}): "
+          f"the {name} card tests failed ({out.returncode}): "
           f"{out.stdout[-3000:]}{out.stderr[-2000:]}")
-    print(f"[hash_corners] card tests: {summary}", flush=True)
+    print(f"[{tag}] card tests: {summary}", flush=True)
     return {"summary": summary, "lines": lines}
 
 
@@ -1496,6 +1509,38 @@ def read_launches(gather, scatter):
             "starts": scatter.run_starts.launches}
 
 
+def device_launches(fn):
+    """fn() with the hand-written kernels the card ran counted from a
+    profiler trace by their names (``tests/card_launches.py``), a CUDA
+    graph's replays included: (fn's result, the counts as
+    ``read_launches`` gives them, the corner kernel's count)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import card_launches
+    out, counts = card_launches.on_device(fn)
+    ran = types.SimpleNamespace(**{
+        k: types.SimpleNamespace(launches=n) for k, n in counts.items()})
+    return out, read_launches(ran, ran), counts["hash_corners"]
+
+
+@contextlib.contextmanager
+def made_train_steps(step):
+    """The train steps that ``step.make_train_step`` makes inside the
+    block (a list, filled as they are made): their ``captures`` and
+    ``replays`` say how many calls ran from a CUDA graph, whose launches
+    the kernel wrappers do not count."""
+    made, make = [], step.make_train_step
+
+    def recording(*args, **kwargs):
+        made.append(make(*args, **kwargs))
+        return made[-1]
+
+    step.make_train_step = recording
+    try:
+        yield made
+    finally:
+        step.make_train_step = make
+
+
 # K4's launches on the main paths by entry point, summed over the paths.
 K4_BY_ENTRY = {"take_cm": 0, "take_wsum_cm": 0}
 
@@ -1515,27 +1560,34 @@ def check_fused_entry(gather, label):
 def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
                 steps, label):
     """A training slice at full width: one warm-up and `steps` timed steps
-    of `cfg` on `model`.  The hashed levels' table gradient goes through K3
-    when the config asks for the bf16 backward, else through K1.  Returns
-    the results and the table gradients of the first (warm-up) step."""
+    of `cfg` on `model`, then one step more with the kernels it runs
+    counted on the card.  The hashed levels' table gradient goes through
+    K3 when the config asks for the bf16 backward, else through K1.  The
+    warm-up runs eagerly, its launches counted by the kernel wrappers; the
+    first timed step captures the graph of the microbatch loop, and every
+    step after the warm-up replays it.  Returns the results and the table
+    gradients of the first (warm-up) step."""
     bf16 = cfg.nerf_mlp.grid_bwd_value_dtype == "bfloat16"
     check(bf16 == (cfg.prop_mlp.grid_bwd_value_dtype == "bfloat16"),
           "the two fields disagree on grid_bwd_value_dtype")
+    from ucnerf_tpu_torch.ops import hashgrid
     state = state_lib.create_train_state(cfg, model)
     train_step = step.make_train_step(model, cfg)
     gen = torch.Generator(device="cuda").manual_seed(5)
+    reset_launches(gather, scatter)
+    corners_from = hashgrid.hash_corners.launches
     state, _ = train_step(state, batch, 0.5, generator=gen)  # warm-up
     torch.cuda.synchronize()
+    eager = read_launches(gather, scatter)
+    eager_corners = hashgrid.hash_corners.launches - corners_from
+    check_fused_entry(gather, f"train {label}")
     # Kept on the host, so that the step's peak memory is the step's own.
     first_grads = {n: p.grad.detach().cpu()
                    for n, p in model.named_parameters()
                    if n.endswith(".table")}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    from ucnerf_tpu_torch.ops import hashgrid
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(gather, scatter)
-    corners_from = hashgrid.hash_corners.launches
     secs, totals, terms = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1544,15 +1596,19 @@ def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
         secs.append(time.perf_counter() - t0)
         totals.append(float(stats["loss"]))
         terms.append({k: float(v) for k, v in stats["losses"].items()})
-    launches = read_launches(gather, scatter)
-    corners = hashgrid.hash_corners.launches - corners_from
-    check_fused_entry(gather, f"train {label}")
     peak = torch.cuda.max_memory_allocated()
+    (state, _), launches, corners = device_launches(
+        lambda: train_step(state, batch, 0.5, generator=gen))
+    check(train_step.captures == 1 and train_step.replays == steps + 1,
+          f"{label}: {train_step.captures} graph captures and "
+          f"{train_step.replays} replays in {steps + 1} steps after the "
+          f"warm-up, expected 1 and {steps + 1}")
     # One corner launch per encode call, over all of its levels: a
     # proposal and a NeRF field a microbatch.
-    check(corners == 2 * cfg.microbatches * steps,
-          f"{label}: the hash-corner kernel launched {corners} times in "
-          f"{steps} steps, expected {2 * cfg.microbatches} per step")
+    check(eager_corners == corners == 2 * cfg.microbatches,
+          f"{label}: the hash-corner kernel launched {eager_corners} times "
+          f"in the eager step and {corners} in a replayed one, expected "
+          f"{2 * cfg.microbatches}")
 
     for i, (total, t) in enumerate(zip(totals, terms)):
         check(np.isfinite(total) and all(np.isfinite(v) for v in t.values()),
@@ -1571,31 +1627,42 @@ def train_phase(torch, gather, scatter, step, state_lib, model, cfg, batch,
     # their fused entries, so no [C, 8 N L] values tensor and no [C/2, M]
     # packed words are built (K1_plain and K3_planar 0).
     hashed = 2 * cfg.microbatches
-    per_step = {"K1": 0 if bf16 else hashed,
-                "K1_fused": 0 if bf16 else hashed, "K1_plain": 0,
-                "K2": 2 * cfg.microbatches, "K3": hashed if bf16 else 0,
-                "K3_fused": hashed if bf16 else 0, "K3_planar": 0,
-                "K4": 16 * cfg.microbatches, "K5": 0,
-                "starts": hashed + 2 * cfg.microbatches}
-    for k, n in per_step.items():
-        check(launches[k] == n * steps,
-              f"{label}: {k} launched {launches[k]} times in {steps} steps, "
-              f"expected {n} per step")
+    want = {"K1": 0 if bf16 else hashed,
+            "K1_fused": 0 if bf16 else hashed, "K1_plain": 0,
+            "K2": 2 * cfg.microbatches, "K3": hashed if bf16 else 0,
+            "K3_fused": hashed if bf16 else 0, "K3_planar": 0,
+            "K4": 16 * cfg.microbatches, "K5": 0,
+            "starts": hashed + 2 * cfg.microbatches}
+    check_step_launches(label, want, eager, launches)
     med = float(np.median(secs))
     print(f"[train {label}] waymo {TRAIN_RAYS} rays x {steps} steps "
           f"({cfg.microbatches} microbatches): step s "
           f"{[round(x, 4) for x in secs]}, train rays/s "
           f"{TRAIN_RAYS / med:.1f}, peak {peak} B ({peak / 2**30:.2f} GiB), "
-          f"loss {[round(x, 5) for x in totals]}, launches {launches}",
-          flush=True)
+          f"loss {[round(x, 5) for x in totals]}, launches of a replayed "
+          f"step on the card {launches}", flush=True)
     print(f"[train {label}] loss terms step 1 {terms[0]}, step {steps} "
           f"{terms[-1]}", flush=True)
     res = {"rays_per_s": TRAIN_RAYS / med, "step_seconds": secs,
            "peak_bytes": peak, "totals": totals, "terms": terms,
-           "launches": launches, "launches_per_step": per_step,
-           "corner_launches_per_step": corners // steps,
+           "launches": launches, "launches_per_step": launches,
+           "launches_eager_step": eager,
+           "graph": {"captures": train_step.captures,
+                     "replays": train_step.replays},
+           "corner_launches_per_step": corners,
            "microbatches": cfg.microbatches}
     return res, first_grads
+
+
+def check_step_launches(label, want, eager, replayed):
+    """A step's launches by kernel: `eager`, those the kernel wrappers
+    counted over an eager step, and `replayed`, those the card ran in a
+    replayed step (``device_launches``), each equal to `want`."""
+    for k, n in want.items():
+        check(eager[k] == n and replayed[k] == n,
+              f"{label}: {k} launched {eager[k]} times in the eager step "
+              f"and {replayed[k]} on the card in a replayed step, expected "
+              f"{n}")
 
 
 def with_bf16_backward(cfg):
@@ -1901,10 +1968,13 @@ def cam_train_phase(torch, gather, scatter, hashgrid, step, state_lib,
     check against the CPU on the f32 phase's initial weights with seeded
     deltas of ~1e-3 (so3_exp's trig branch), the deltas included; then,
     from those weights and the deltas at 0 on the f32 phase's batch, one
-    warm-up and CAM_STEPS timed steps.  Every K4 launch is take_cm (16 a
-    microbatch); fused K1 20, K2 20 and 40 run starts a step as in the f32
-    phase.  Then take_cm held and timed at one microbatch's real
-    indices, and with `profile` one step's kernel table written there."""
+    warm-up (eager) and CAM_STEPS timed steps, then one step more with
+    the kernels it runs counted on the card (the later steps replayed from
+    the step's graph).  Every K4 launch is take_cm (16 a microbatch);
+    fused K1 20, K2 20 and 40 run starts a step as in the f32 phase, in
+    the eager step and in a replayed one.  Then take_cm held and timed at
+    one microbatch's real indices, and with `profile` one step's kernel
+    table written there."""
     model = step.init_model(cfg, seed=0, device="cuda")
     missing, unexpected = model.load_state_dict(initial, strict=False)
     check(missing == ["cam_refine.se3_deltas"] and not unexpected,
@@ -1921,8 +1991,11 @@ def cam_train_phase(torch, gather, scatter, hashgrid, step, state_lib,
     state = state_lib.create_train_state(cfg, model)
     train_step = step.make_train_step(model, cfg)
     gen = torch.Generator(device="cuda").manual_seed(5)
+    reset_launches(gather, scatter)
     state, _ = train_step(state, batch, 0.5, generator=gen)  # warm-up
     torch.cuda.synchronize()
+    eager = read_launches(gather, scatter)
+    check_take_entry(gather, "train camera refinement")
     d = model.cam_refine.se3_deltas.grad.detach().cpu()
     check(bool(torch.isfinite(d).all()) and bool(d[:, :3].abs().max() > 0)
           and bool(d[:, 3:].abs().max() > 0),
@@ -1930,7 +2003,6 @@ def cam_train_phase(torch, gather, scatter, hashgrid, step, state_lib,
           f"nonzero in the rotation and the translation half")
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(gather, scatter)
     secs, totals = [], []
     for _ in range(CAM_STEPS):
         t0 = time.perf_counter()
@@ -1938,25 +2010,27 @@ def cam_train_phase(torch, gather, scatter, hashgrid, step, state_lib,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         totals.append(float(stats["loss"]))
-    launches = read_launches(gather, scatter)
-    check_take_entry(gather, "train camera refinement")
     peak = torch.cuda.max_memory_allocated()
+    (state, _), launches, _ = device_launches(
+        lambda: train_step(state, batch, 0.5, generator=gen))
+    check(train_step.captures == 1
+          and train_step.replays == CAM_STEPS + 1,
+          f"camera steps: {train_step.captures} graph captures and "
+          f"{train_step.replays} replays in {CAM_STEPS + 1} steps after the "
+          f"warm-up, expected 1 and {CAM_STEPS + 1}")
     check(all(np.isfinite(totals)), f"camera steps: losses {totals}")
     deltas = model.cam_refine.se3_deltas.detach().cpu()
     check(bool(deltas.abs().max() > 0), "camera deltas did not move")
-    per_step = step_launches(cfg)
-    for k, n in per_step.items():
-        check(launches[k] == n * CAM_STEPS,
-              f"camera steps: {k} launched {launches[k]} times in "
-              f"{CAM_STEPS} steps, expected {n} per step")
+    check_step_launches("camera steps", step_launches(cfg), eager, launches)
     med = float(np.median(secs))
     print(f"[cam] waymo + optimize_cameras + contract_origin_grads "
           f"{TRAIN_RAYS} rays x {CAM_STEPS} steps ({cfg.microbatches} "
           f"microbatches): step s {[round(x, 4) for x in secs]}, train "
           f"rays/s {TRAIN_RAYS / med:.1f}, peak {peak} B "
           f"({peak / 2**30:.2f} GiB), loss {[round(x, 5) for x in totals]}, "
-          f"launches {launches} (K4 all take_cm), deltas after "
-          f"{CAM_STEPS + 1} steps {deltas.tolist()}", flush=True)
+          f"launches of a replayed step on the card {launches} (K4 all "
+          f"take_cm), deltas after {CAM_STEPS + 2} steps "
+          f"{deltas.tolist()}", flush=True)
     real = take_real_step(torch, gather, hashgrid, losses_lib, model, cfg,
                           batch)
     if profile:
@@ -1965,7 +2039,7 @@ def cam_train_phase(torch, gather, scatter, hashgrid, step, state_lib,
     torch.cuda.empty_cache()
     return {"rays_per_s": TRAIN_RAYS / med, "step_seconds": secs,
             "peak_bytes": peak, "totals": totals, "launches": launches,
-            "launches_per_step": per_step,
+            "launches_per_step": launches, "launches_eager_step": eager,
             "first_delta_grad": d.tolist(), "deltas": deltas.tolist(),
             "take_cm_real_step": real, "grad_check": grad}
 
@@ -2035,27 +2109,35 @@ def check_virtual_fifth(arm, batch, label):
             "virtual_rays": nv}
 
 
-def rig_arm(torch, gather, scatter, tool, arm, steps, delta, label):
+def rig_arm(torch, gather, scatter, step, tool, arm, steps, delta, label):
     """`steps` of the tool's training on `arm`, its launches counted from
-    0; the launches a step checked."""
+    0 by the kernel wrappers; the launches a step checked over the calls
+    whose Python issued them: the eager calls and the captures (a capture
+    issues each launch once, into the graph, and runs its first replay;
+    a replay issues nothing)."""
     reset_launches(gather, scatter)
     t0 = time.perf_counter()
-    stats = tool.train(arm, steps, log_every=max(steps // 3, 1),
-                       delta=delta)
+    with made_train_steps(step) as made:
+        stats = tool.train(arm, steps, log_every=max(steps // 3, 1),
+                           delta=delta)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches(gather, scatter)
     loss = float(stats["loss"])
     check(np.isfinite(loss), f"{label}: loss {loss}")
+    check(len(made) == 1, f"{label}: {len(made)} train steps made")
+    issued = steps - made[0].replays + made[0].captures
     per_step = step_launches(arm.cfg)
     for k, n in per_step.items():
-        check(launches[k] == n * steps,
-              f"{label}: {k} launched {launches[k]} times in {steps} "
-              f"steps, expected {n} per step")
+        check(launches[k] == n * issued,
+              f"{label}: {k} launched {launches[k]} times in {issued} "
+              f"eager calls and captures, expected {n} per step")
     return {"steps": steps, "seconds": secs, "steps_per_s": steps / secs,
             "rays_per_s": steps * arm.cfg.batch_size / secs,
             "train_loss": loss, "launches": launches,
-            "launches_per_step": per_step}
+            "launches_per_step": per_step,
+            "graph": {"captures": made[0].captures,
+                      "replays": made[0].replays}}
 
 
 def rig_phase(torch, gather, scatter, hashgrid, configs, step, losses_lib):
@@ -2085,8 +2167,8 @@ def rig_phase(torch, gather, scatter, hashgrid, configs, step, losses_lib):
                      device="cuda")
     check(getattr(off.model, "cam_refine", None) is None,
           "rig off: the model has camera deltas")
-    res["off"] = rig_arm(torch, gather, scatter, tool, off, RIG_OFF_STEPS,
-                         None, "rig off")
+    res["off"] = rig_arm(torch, gather, scatter, step, tool, off,
+                         RIG_OFF_STEPS, None, "rig off")
     check_fused_entry(gather, "rig off")
     rot, tr = map(float, tool.residual_error(np.zeros((2, 6), np.float32),
                                              delta))
@@ -2101,8 +2183,8 @@ def rig_phase(torch, gather, scatter, hashgrid, configs, step, losses_lib):
     # The checks below start from the init (after training, the field
     # turns opaque under random tables and the sky NeRF gets no gradient).
     init = {k: v.clone() for k, v in arm.model.state_dict().items()}
-    res["composed"] = rig_arm(torch, gather, scatter, tool, arm, RIG_STEPS,
-                              delta, "rig composed")
+    res["composed"] = rig_arm(torch, gather, scatter, step, tool, arm,
+                              RIG_STEPS, delta, "rig composed")
     check_take_entry(gather, "rig composed")
     se3 = tool.se3_deltas(arm)
     rot, tr = map(float, tool.residual_error(se3, delta))
@@ -2526,20 +2608,25 @@ def field_phase(torch, gather, scatter, hashgrid, step, state_lib,
                 losses_lib, cfg, batch, model, steps, label, per_mb,
                 views=None, profile=None):
     """A training path of the field's options at full width: the 64-ray
-    check against float64 (grad_check_f64), one warm-up and `steps` timed
-    steps with the launches counted (per_mb: launches by kernel per
-    microbatch), two runs of 2 steps bitwise equal; with `views`, one
-    480x320 render of the first view with its launches counted; with
-    `profile`, one step's kernel table written there."""
+    check against float64 (grad_check_f64), one warm-up (eager, its
+    launches counted by the kernel wrappers) and `steps` timed steps, then
+    one step more, replayed from the step's graph, with the kernels it
+    runs counted on the card (per_mb: launches by kernel per microbatch);
+    two runs of 2 steps bitwise equal; with `views`, one 480x320 render of
+    the first view with its launches counted; with `profile`, one step's
+    kernel table written there."""
     initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     grad = grad_check_f64(torch, losses_lib, model, cfg, batch, label)
     state = state_lib.create_train_state(cfg, model)
     train_step = step.make_train_step(model, cfg)
     gen = torch.Generator(device="cuda").manual_seed(5)
+    reset_launches(gather, scatter)
     state, _ = train_step(state, batch, 0.5, generator=gen)  # warm-up
     torch.cuda.synchronize()
+    eager = read_launches(gather, scatter)
+    K4_BY_ENTRY["take_cm"] += gather.take_cm.launches
+    K4_BY_ENTRY["take_wsum_cm"] += gather.take_wsum_cm.launches
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(gather, scatter)
     secs, totals, terms = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -2548,29 +2635,29 @@ def field_phase(torch, gather, scatter, hashgrid, step, state_lib,
         secs.append(time.perf_counter() - t0)
         totals.append(float(stats["loss"]))
         terms.append({k: float(v) for k, v in stats["losses"].items()})
-    launches = read_launches(gather, scatter)
     peak = torch.cuda.max_memory_allocated()
-    K4_BY_ENTRY["take_cm"] += gather.take_cm.launches
-    K4_BY_ENTRY["take_wsum_cm"] += gather.take_wsum_cm.launches
+    (state, _), launches, _ = device_launches(
+        lambda: train_step(state, batch, 0.5, generator=gen))
+    check(train_step.captures == 1 and train_step.replays == steps + 1,
+          f"{label}: {train_step.captures} graph captures and "
+          f"{train_step.replays} replays in {steps + 1} steps after the "
+          f"warm-up, expected 1 and {steps + 1}")
     for i, (total, t) in enumerate(zip(totals, terms)):
         check(np.isfinite(total) and all(np.isfinite(v) for v in t.values()),
               f"{label} step {i + 1}: non-finite loss {total} {t}")
     per_step = {k: n * cfg.microbatches for k, n in per_mb.items()}
-    for k, n in per_step.items():
-        check(launches[k] == n * steps,
-              f"{label}: {k} launched {launches[k]} times in {steps} steps, "
-              f"expected {n} per step")
+    check_step_launches(label, per_step, eager, launches)
     med = float(np.median(secs))
     print(f"[{label}] {TRAIN_RAYS} rays x {steps} steps ({cfg.microbatches} "
           f"microbatches): step s {[round(x, 4) for x in secs]}, train "
           f"rays/s {TRAIN_RAYS / med:.1f}, peak {peak} B "
           f"({peak / 2**30:.2f} GiB), loss {[round(x, 5) for x in totals]}, "
-          f"launches {launches}; loss terms step {steps} {terms[-1]}",
-          flush=True)
+          f"launches of a replayed step on the card {launches}; loss terms "
+          f"step {steps} {terms[-1]}", flush=True)
     res = {"rays_per_s": TRAIN_RAYS / med, "step_seconds": secs,
            "peak_bytes": peak, "totals": totals, "terms": terms,
-           "launches": launches, "launches_per_step": per_step,
-           "grad_check": grad}
+           "launches": launches, "launches_per_step": launches,
+           "launches_eager_step": eager, "grad_check": grad}
     if profile:
         profile_train_step(torch, model, cfg, batch, step, state_lib, profile)
     if views is not None:
@@ -2853,6 +2940,7 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
     checkpoint).  Two rates come out: the one the CLI logs, over the steady
     windows alone (`steady_windows`), and steps x batch_size over the
     seconds of each whole call, with its set-up, test render and saves."""
+    from ucnerf_tpu_torch.train import step
     first, second = CLI_STEPS
     argv = cli_argv(exp)
     log_path = os.path.join(exp, "log_train.txt")
@@ -2862,7 +2950,8 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
     for max_steps, start in ((first, 0), (second, first)):
         reset_launches(gather, scatter)
         t0 = time.perf_counter()
-        cli_train.main(argv + ["--max-steps", str(max_steps)])
+        with made_train_steps(step) as made:
+            cli_train.main(argv + ["--max-steps", str(max_steps)])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = read_launches(gather, scatter)
@@ -2872,6 +2961,10 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
             log = f.read()
             offset = f.tell()
         steps = max_steps - start
+        # The kernel wrappers count the launches of the eager calls and
+        # the captures (each of which also runs the graph's first replay).
+        check(len(made) == 1, f"CLI: {len(made)} train steps made")
+        issued = steps - made[0].replays + made[0].captures
         lines = {int(a): (float(b), float(c), float(d)) for a, b, c, d in
                  re.findall(r"step (\d+)/\d+: loss=(\S+) psnr=(\S+) "
                             r"(\d+) rays/s", log)}
@@ -2886,18 +2979,21 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
         # The last CLI_KEEP saves are left (20 and 30, then 30 and 40).
         want = [str(v) for v in CLI_SAVES[max_steps]]
         check(kept == want, f"CLI: checkpoints {kept}, expected {want}")
-        check(launches["K3"] == steps * microbatches * 2
+        check(launches["K3"] == issued * microbatches * 2
               and launches["K3_fused"] == launches["K3"]
               and launches["K3_planar"] == 0
-              and launches["K2"] == steps * microbatches * 2
-              and launches["starts"] == steps * microbatches * 4
+              and launches["K2"] == issued * microbatches * 2
+              and launches["starts"] == issued * microbatches * 4
               and launches["K1"] == 0,
-              f"CLI: launches {launches} in {steps} steps of "
-              f"{microbatches} microbatches")
+              f"CLI: launches {launches} in {issued} eager calls and "
+              f"captures (of {steps} steps), of {microbatches} "
+              f"microbatches")
         steady = {k: lines[k][2]
                   for k in steady_windows(lines, start, first)}
         results.append({"max_steps": max_steps, "seconds": secs,
                         "launches": launches, "log": lines,
+                        "graph": {"captures": made[0].captures,
+                                  "replays": made[0].replays},
                         "steady_window_rays_per_s": steady,
                         "call_rays_per_s": steps * batch_size / secs})
         print(f"[cli] --max-steps {max_steps} from step {start}: "
@@ -2918,7 +3014,7 @@ def cli_phase(torch, gather, scatter, cli_train, batch_size, exp):
             check(render is not None
                   and np.isfinite(float(render.group(1))),
                   "CLI: no test render with a finite PSNR in the log")
-            chunks = (launches["K4"] - steps * microbatches * levels)
+            chunks = (launches["K4"] - issued * microbatches * levels)
             check(chunks > 0 and chunks % levels == 0,
                   f"CLI: K4 launched {launches['K4']} times; the test "
                   f"render's share {chunks} is no multiple of {levels}")
@@ -3620,13 +3716,16 @@ def grad_check_phase(torch, losses_lib, model, cfg, batch):
 
 
 def profile_train_step(torch, model, cfg, batch, step, state_lib, path):
-    """Device time by kernel over one training step (torch.profiler); the
-    table goes to `path`."""
+    """Device time by kernel over one training step (torch.profiler), as
+    the train step runs it once its shapes repeat: replayed from its CUDA
+    graph (the first call runs eagerly, the second captures the graph);
+    the table goes to `path`."""
     from torch.profiler import ProfilerActivity, profile
     state = state_lib.create_train_state(cfg, model)
     train_step = step.make_train_step(model, cfg)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    train_step(state, batch, 0.5, generator=gen)
+    for _ in range(2):
+        train_step(state, batch, 0.5, generator=gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -5275,7 +5374,8 @@ def main(argv=None):
           f"{list(build.HOST_SOURCES)} built in {secs:.1f} s", flush=True)
 
     k4 = kernel_phase(torch, gather)
-    corners_res = corners_phase()
+    corners_res = card_tests_phase("hash_corners", "hash_corners")
+    graph_res = card_tests_phase("train_graph", "train_graph")
     k1, k2, k3, k5 = scatter_phase(torch, scatter, hashgrid, configs)
     slice_res, eval_step, views, cfg, model = slice_phase(
         torch, gather, scatter, configs, cameras, step)
@@ -5564,7 +5664,8 @@ def main(argv=None):
                        "serve": serve_res, "jax_import": jax_res,
                        "grad_check": grad_res,
                        "mvs": mvs_res, "pose": pose_res,
-                       "hash_corners": corners_res}, f, indent=1)
+                       "hash_corners": corners_res,
+                       "train_graph": graph_res}, f, indent=1)
     print(f"[time] the whole smoke, the kernels' build included: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

@@ -69,9 +69,39 @@ class UCNeRFModel(nn.Module):
                 net_depth=mcfg.brightness_net_depth,
                 net_width=mcfg.brightness_net_width)
 
+    def schedule(self, train_frac):
+        """What the forward derives from `train_frac` on the host, as
+        Python floats: ``anneal`` (Schlick's bias of train_frac, the
+        resampling logits' scale), ``init_s_near`` (the near end of the
+        normalized distances, annealed where ``near_anneal_rate`` is set)
+        and ``dilations`` (each level's dilation of its proposal
+        weights)."""
+        mcfg = self.config.model
+        if mcfg.near_anneal_rate is None:
+            init_s_near = 0.0
+        else:
+            init_s_near = float(np.clip(
+                1 - train_frac / mcfg.near_anneal_rate, 0,
+                mcfg.near_anneal_init))
+        if mcfg.anneal_slope > 0:
+            s = mcfg.anneal_slope
+            anneal = (s * train_frac) / ((s - 1) * train_frac + 1)
+        else:
+            anneal = 1.0
+        dilations, prod_num_samples = [], 1
+        for i_level in range(mcfg.num_levels):
+            dilations.append(mcfg.dilation_bias + mcfg.dilation_multiplier *
+                             (1.0 - init_s_near) / prod_num_samples)
+            prod_num_samples *= (mcfg.num_prop_samples
+                                 if i_level < self.num_prop
+                                 else mcfg.num_nerf_samples)
+        return {"anneal": anneal, "init_s_near": init_s_near,
+                "dilations": tuple(dilations)}
+
     @spanned("ucnerf.forward")
     def forward(self, batch, train_frac, rand_vec=None, compute_extras=False,
-                eval_camidx=None, train=False, generator=None, bg_draw=None):
+                eval_camidx=None, train=False, generator=None, bg_draw=None,
+                schedule=None):
         """Render a flat ray batch.
 
         Args:
@@ -95,6 +125,11 @@ class UCNeRFModel(nn.Module):
           bg_draw: optional U[0, 1) draws [N, 3] for a random
             ``bg_intensity_range`` in the generator's place (the tests pass
             JAX's).
+          schedule: optional ``schedule(train_frac)``, in train_frac's
+            place; any of its values may be a 0-d float32 tensor on the
+            batch's device holding the float32 of the value, which gives
+            the same result bit for bit (a CUDA graph of the train step
+            reads them so, refilled each step).
 
         Returns:
           (renderings, ray_history): one dict per sampling level each.
@@ -128,17 +163,20 @@ class UCNeRFModel(nn.Module):
 
         _, s_to_t = coord.construct_ray_warps(
             mcfg.raydist_fn, near, far, mcfg.power_lambda)
-        if mcfg.near_anneal_rate is None:
-            init_s_near = 0.0
-        else:
-            init_s_near = float(np.clip(
-                1 - train_frac / mcfg.near_anneal_rate, 0,
-                mcfg.near_anneal_init))
+        if schedule is None:
+            schedule = self.schedule(train_frac)
+        init_s_near, anneal = schedule["init_s_near"], schedule["anneal"]
         init_s_far = 1.0
-        sdist = torch.cat([torch.full_like(near, init_s_near),
-                           torch.full_like(far, init_s_far)], dim=-1)
+        if isinstance(init_s_near, torch.Tensor):
+            # A Python bound beside a tensor one would be copied to the
+            # device on each call.
+            domain = (init_s_near, torch.full_like(init_s_near, init_s_far))
+            near_s = init_s_near.expand_as(near)
+        else:
+            domain = (init_s_near, init_s_far)
+            near_s = torch.full_like(near, init_s_near)
+        sdist = torch.cat([near_s, torch.full_like(far, init_s_far)], dim=-1)
         weights = torch.ones_like(near)
-        prod_num_samples = 1
 
         ray_history = []
         renderings = []
@@ -146,24 +184,15 @@ class UCNeRFModel(nn.Module):
             is_prop = i_level < self.num_prop
             num_samples = (mcfg.num_prop_samples if is_prop
                            else mcfg.num_nerf_samples)
-            dilation = (mcfg.dilation_bias + mcfg.dilation_multiplier *
-                        (init_s_far - init_s_near) / prod_num_samples)
-            prod_num_samples *= num_samples
 
             use_dilation = mcfg.dilation_bias > 0 or mcfg.dilation_multiplier > 0
             if i_level > 0 and use_dilation:
                 sdist, weights = stepfun.max_dilate_weights(
-                    sdist, weights, dilation,
-                    domain=(init_s_near, init_s_far), renormalize=True)
+                    sdist, weights, schedule["dilations"][i_level],
+                    domain=domain, renormalize=True)
                 sdist = sdist[..., 1:-1]
                 weights = weights[..., 1:-1]
 
-            if mcfg.anneal_slope > 0:
-                # Schlick's bias function.
-                s = mcfg.anneal_slope
-                anneal = (s * train_frac) / ((s - 1) * train_frac + 1)
-            else:
-                anneal = 1.0
             logits_resample = torch.where(
                 sdist[..., 1:] > sdist[..., :-1],
                 anneal * torch.log(weights + mcfg.resample_padding),
@@ -173,8 +202,8 @@ class UCNeRFModel(nn.Module):
                 d = 1 if mcfg.single_jitter else num_samples
                 jitter = torch.rand((n, d), generator=generator, device=dev)
             sdist = stepfun.sample_intervals(
-                sdist, logits_resample, num_samples,
-                domain=(init_s_near, init_s_far), jitter=jitter)
+                sdist, logits_resample, num_samples, domain=domain,
+                jitter=jitter)
             if mcfg.stop_level_grad:
                 sdist = sdist.detach()
             tdist = s_to_t(sdist)

@@ -51,6 +51,31 @@ class SkyNeRF(nn.Module):
         return alpha, self.rgb_linear(h)
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of factors none of which is 0,
+    with the backward torch takes for such factors: the reversed cumulative
+    sum of out * grad, divided by the factors.  Torch's own backward first
+    asks the device whether any factor is 0, a wait for the device that a
+    CUDA graph's capture refuses."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def cumprod_nonzero(x):
+    """Cumulative product along the last axis of x, whose entries are never
+    0 (see ``_CumprodNonzero``)."""
+    return _CumprodNonzero.apply(x)
+
+
 def render_sky(sky_model, origins, directions, near, far, num_samples,
                viewdirs=None):
     """One-level deterministic raymarch of the sky NeRF.
@@ -84,9 +109,10 @@ def render_sky(sky_model, origins, directions, near, far, num_samples,
     dists = dists * torch.linalg.norm(directions, dim=-1, keepdim=True)
     rgb = torch.sigmoid(rgb_raw)  # [3, R, S]
     alpha = 1.0 - torch.exp(-torch.relu(alpha_raw[0]) * dists)  # [R, S]
-    trans = torch.cumprod(
+    # Each factor is at least 1e-10.
+    trans = cumprod_nonzero(
         torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-10],
-                  dim=-1), dim=-1)[..., :-1]
+                  dim=-1))[..., :-1]
     weights = alpha * trans
     rgb_map = torch.einsum("rs,crs->rc", weights, rgb)
     depth_map = (weights * z_vals).sum(dim=-1)

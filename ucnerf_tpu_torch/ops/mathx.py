@@ -11,6 +11,7 @@ the JAX package and are not ported.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -39,15 +40,25 @@ def safe_sin(x):
     return safe_trig_helper(x, torch.sin)
 
 
+@functools.lru_cache(maxsize=None)
+def constant(value: float, device=None) -> torch.Tensor:
+    """A 0-d float32 tensor of `value` on `device`, made once and shared:
+    callers must not write into it.  A tensor built from a Python value on
+    a card is a blocking copy from host memory, which empties the card's
+    queue and which a CUDA graph's capture refuses."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def linspace(start: float, stop: float, num: int, device=None):
     """float32 ``jnp.linspace`` with its formula:
     ``start * (1 - k/div) + stop * (k/div)`` in f32, last entry ``stop``
-    (``torch.linspace`` steps from both ends and rounds differently)."""
+    (``torch.linspace`` steps from both ends and rounds differently).  The
+    endpoints are ``constant``s."""
     f32 = torch.float32
-    start_t = torch.tensor(start, dtype=f32, device=device)
-    stop_t = torch.tensor(stop, dtype=f32, device=device)
+    start_t = constant(float(start), device)
+    stop_t = constant(float(stop), device)
     if num == 1:
-        return start_t.reshape(1)
+        return start_t.reshape(1).clone()
     div = num - 1
     step = torch.arange(div, dtype=f32, device=device) / div
     out = start_t * (1 - step) + stop_t * step

@@ -19,6 +19,8 @@ are passed in the same way, as uniform draws.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,6 +30,14 @@ EPS = mathx.EPS
 
 # Hexagonal phase pattern (multiples of pi/3), Zip-NeRF Sec. 3.1.
 _HEX_PATTERN = (0.0, 2.0, 4.0, 3.0, 5.0, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def hex_pattern(dtype, device) -> torch.Tensor:
+    """``_HEX_PATTERN`` as a [6, 1, 1] tensor on `device`, made once and
+    shared (see ``mathx.constant``)."""
+    return torch.tensor(_HEX_PATTERN, dtype=dtype,
+                        device=device).reshape(6, 1, 1)
 
 
 def _normalize(v):
@@ -123,8 +133,7 @@ def cast_rays_cm(tdist, origins, directions, cam_dirs, radii, rand_vec,
         t1**2 + 2 * t_m**2 + 3 / 7**0.5 * (2 * j / 5 - 1) *
         torch.sqrt((t_d**2 - t_m**2) ** 2 + 4 * t_m**4))  # [6, R, S]
 
-    deg = (np.pi / 3) * torch.tensor(_HEX_PATTERN, dtype=dt,
-                                     device=dev).reshape(6, 1, 1)
+    deg = (np.pi / 3) * hex_pattern(dt, dev)
     deg = deg.expand(6, r, s)
     if flip is not None:
         # Randomly rotate and flip the hex pattern per interval.

@@ -16,13 +16,20 @@ receives the rank's local batch, takes its share of each global microbatch
 the render splits each chunk over the ranks and gathers it back (the JAX
 package's mesh-sharded step and render).
 
-Under a profiler, each microbatch's backward, the step's optimizer update
-and ``render_image`` show as ``ucnerf.*`` spans (``utils/spans.py``).
+On a card, and without a group, the train step replays its microbatch loop
+from a CUDA graph once the shapes of a call have repeated: the same kernels
+in the same order, issued by one graph launch instead of one host launch
+each (``_StepGraph``).
+
+Under a profiler, each microbatch's backward, each graph replay, the step's
+optimizer update and ``render_image`` show as ``ucnerf.*`` spans
+(``utils/spans.py``).
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 from typing import Dict
 
 import numpy as np
@@ -109,7 +116,8 @@ def microbatch_shares(batch: int, world: int, microbatches: int):
     return shares
 
 
-def make_train_step(model: UCNeRFModel, config: Config, group=None):
+def make_train_step(model: UCNeRFModel, config: Config, group=None,
+                    graphs: bool = True):
     """Build the train step.
 
     Returns ``train_step(state, batch, train_frac, generator=None,
@@ -143,34 +151,71 @@ def make_train_step(model: UCNeRFModel, config: Config, group=None):
     the weighted shares would not be the global mean).  At W = 1 the
     reduce is the identity, bit for bit.
 
+    On CUDA tensors and without a group, the microbatch loop (forwards,
+    losses, backwards into ``.grad`` and the sums of the losses and stats)
+    runs from a CUDA graph once a call's key repeats the previous call's:
+    the key is the shares, every batch tensor's name, shape and dtype, the
+    hex basis's shape, the device, the generator and the parameters'
+    storage.  A call whose key differs from the previous call's runs
+    eagerly; one that repeats it captures the loop and replays it, and
+    later calls with that key replay it.  The step keeps one graph: a
+    capture for another key drops the one before.  Each replay reads the
+    batch and the hex basis copied into the graph's buffers, and
+    ``model.schedule(train_frac)`` as 0-d tensors, draws from the
+    generator where the eager step would (the graph holds the generator's
+    state), and leaves the gradients in the ``.grad`` tensors the call
+    before the capture made, zeroed first inside the graph (0 + g is g),
+    so the step is bitwise the eager step.  The 1/microbatches scale and
+    the optimizer stay eager.  ``train_step.captures`` and
+    ``train_step.replays`` count the graphs captured and run; each replay
+    shows as the span ``ucnerf.graph_replay``.  The kernel wrappers'
+    launch counters count the launches their Python issues, so a replay
+    adds nothing to them.  ``graphs=False`` keeps every call eager.
+
     The JAX package recomputes the fields in the backward
     (``remat_fields``, for a TPU's 16 GB); the port keeps the activations
     and ignores that knob.
     """
-    num_micro = max(config.microbatches, 1)
-    world, rank = ((1, 0) if group is None else
-                   (meshlib.world_size(group), meshlib.rank(group)))
+    return _TrainStep(config, group, graphs)
 
-    def train_step(state: TrainState, batch, train_frac, generator=None,
-                   rand_vec=None):
-        n = batch["origins"].shape[0]
-        shares = microbatch_shares(n * world, world, num_micro)[rank].tolist()
+
+class _TrainStep:
+    """``make_train_step``'s step; ``captures`` and ``replays`` count its
+    graphs' captures and runs.  (A class, so that the step holds no
+    reference to itself and its graph goes with it.)"""
+
+    def __init__(self, config: Config, group, graphs: bool):
+        self.config, self.group = config, group
+        self.num_micro = max(config.microbatches, 1)
+        self.world, self.rank = ((1, 0) if group is None else
+                                 (meshlib.world_size(group),
+                                  meshlib.rank(group)))
+        self.graphs = graphs and group is None
+        self.graph = None
+        self.last_key = None
+        self.captures = 0
+        self.replays = 0
+
+    def _accumulate(self, model, batch, shares, train_frac, generator,
+                    rand_vec, schedule):
+        """The microbatch loop: each share's forward, losses and backward
+        into ``.grad``; returns the sums of the total, the loss terms and
+        the stats."""
+        world = self.world
         starts = np.cumsum([0] + shares).tolist()
-        per_micro = n * world // num_micro
-        params = list(state.model.parameters())
-        for p in params:
-            p.grad = None
+        per_micro = sum(shares) * world // self.num_micro
         total_acc = losses_acc = stats_acc = None
         for i, size in enumerate(shares):
             if not size:
                 continue
             part = slice(starts[i], starts[i] + size)
             mb = {k: v[part] for k, v in batch.items()}
-            renderings, ray_history = state.model(
+            renderings, ray_history = model(
                 mb, train_frac, None if rand_vec is None else rand_vec[part],
-                compute_extras=False, train=True, generator=generator)
+                compute_extras=False, train=True, generator=generator,
+                schedule=schedule)
             total, losses, stats = losses_lib.compute_all_losses(
-                mb, renderings, ray_history, config)
+                mb, renderings, ray_history, self.config)
             if world * size != per_micro:
                 weight = world * size / per_micro
                 total = total * weight
@@ -189,6 +234,40 @@ def make_train_step(model: UCNeRFModel, config: Config, group=None):
                               for k, v in losses.items()}
                 stats_acc = {k: stats_acc[k] + v.detach()
                              for k, v in stats.items()}
+        return total_acc, losses_acc, stats_acc
+
+    def __call__(self, state: TrainState, batch, train_frac, generator=None,
+                 rand_vec=None):
+        group, num_micro = self.group, self.num_micro
+        n = batch["origins"].shape[0]
+        shares = microbatch_shares(n * self.world, self.world,
+                                   num_micro)[self.rank].tolist()
+        params = list(state.model.parameters())
+        key = _graph_key(batch, shares, generator, rand_vec, params) \
+            if self.graphs else None
+        graph = self.graph
+        if graph is not None and graph.key != key:
+            graph = None
+        if graph is None and key is not None and key == self.last_key:
+            self.graph = None  # its pool goes before the next capture
+            graph = self.graph = _StepGraph(
+                key, functools.partial(self._accumulate, state.model,
+                                       shares=shares, train_frac=train_frac,
+                                       generator=generator),
+                params, batch, rand_vec, state.model.schedule(train_frac),
+                generator)
+            self.captures += 1
+        self.last_key = key
+        if graph is None:
+            for p in params:
+                p.grad = None
+            total_acc, losses_acc, stats_acc = self._accumulate(
+                state.model, batch, shares, train_frac, generator, rand_vec,
+                None)
+        else:
+            total_acc, losses_acc, stats_acc = graph.replay(
+                batch, rand_vec, state.model.schedule(train_frac))
+            self.replays += 1
         inv = 1.0 / num_micro
         with span("ucnerf.optimizer"):
             if num_micro > 1:
@@ -208,7 +287,105 @@ def make_train_step(model: UCNeRFModel, config: Config, group=None):
             out = _mean_over_ranks(out, group)
         return new_state, out
 
-    return train_step
+
+def _graph_key(batch, shares, generator, rand_vec, params,
+               devices=("cuda",)):
+    """The key under which a train step's call may replay a graph, or None
+    where it stays eager: tensors on a device whose type is not among
+    `devices`, or a generator on another device."""
+    dev = batch["origins"].device
+    if dev.type not in devices or (
+            generator is not None and generator.device.type != dev.type):
+        return None
+    return (dev, tuple(shares),
+            tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()),
+            None if rand_vec is None else tuple(rand_vec.shape),
+            None if generator is None else id(generator),
+            tuple(p.data_ptr() for p in params))
+
+
+class _CudaGraph:
+    """One call of `body` captured as a CUDA graph: ``outputs`` are its
+    results, which each ``replay()`` writes anew.  A generator the body
+    draws from is registered, so that each replay draws at the
+    generator's state then and advances it as the eager calls would."""
+
+    def __init__(self, body, generator):
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        # A graph that the garbage collector destroys during a capture
+        # ends that capture, so the collector waits until it is done.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # Capture frees the cached blocks of the eager calls first.
+            with torch.cuda.graph(self.graph):
+                self.outputs = body()
+        finally:
+            if collecting:
+                gc.enable()
+
+    def replay(self):
+        self.graph.replay()
+
+
+class _StepGraph:
+    """A train step's microbatch loop for one key as a graph over buffers
+    of its own: the batch and the hex basis it reads, and the schedule's
+    values as 0-d float32 tensors.  The gradients go into the parameters'
+    ``.grad`` as the call before the capture left them (zeros where it
+    left none), which the graph zeroes before the loop.  The first replay
+    follows the capture at once."""
+
+    def __init__(self, key, loop, params, batch, rand_vec, schedule,
+                 generator):
+        self.key, self.params = key, params
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.rand_vec = None if rand_vec is None else rand_vec.clone()
+        dev = batch["origins"].device
+        self.schedule = {
+            k: (tuple(_scalar(x, dev) for x in v) if isinstance(v, tuple)
+                else _scalar(v, dev)) for k, v in schedule.items()}
+        self.grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                      for p in params]
+        self._attach_grads()
+
+        def body():
+            for g in self.grads:
+                g.zero_()
+            return loop(self.batch, rand_vec=self.rand_vec,
+                        schedule=self.schedule)
+
+        self.graph = _CudaGraph(body, generator)
+
+    def _attach_grads(self):
+        for p, g in zip(self.params, self.grads):
+            p.grad = g
+
+    def replay(self, batch, rand_vec, schedule):
+        """Run the loop on `batch`, `rand_vec` and the `schedule`'s floats;
+        returns the sums of the total, the loss terms and the stats (the
+        graph's own tensors, which the next replay overwrites)."""
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        if rand_vec is not None:
+            self.rand_vec.copy_(rand_vec)
+        for k, v in schedule.items():
+            if isinstance(v, tuple):
+                for t, x in zip(self.schedule[k], v):
+                    t.fill_(x)
+            else:
+                self.schedule[k].fill_(v)
+        self._attach_grads()
+        with span("ucnerf.graph_replay"):
+            self.graph.replay()
+        return self.graph.outputs
+
+
+def _scalar(value, device):
+    """A 0-d float32 tensor holding float32(value) on `device`."""
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def _mean_over_ranks(stats, group):

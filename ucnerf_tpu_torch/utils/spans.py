@@ -11,8 +11,10 @@ The spans (all named ``ucnerf.*``): ``data.sample`` (a training batch's
 pixels and rays on the host), ``data.to_device`` (a ray batch to the
 device), ``forward`` (the model's whole forward), ``encode`` (a field's
 contraction, hash indices and gather), ``losses``, ``backward``,
-``optimizer`` (gradient scale, all-reduce, clean, clips, Adam, schedule)
-and ``render`` (``render_image``'s chunk loop).
+``optimizer`` (gradient scale, all-reduce, clean, clips, Adam, schedule),
+``graph_replay`` (a train step's microbatch loop replayed from a CUDA
+graph, in place of its forward, losses and backward spans) and ``render``
+(``render_image``'s chunk loop).
 """
 
 from __future__ import annotations
